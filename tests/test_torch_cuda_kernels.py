@@ -1,0 +1,140 @@
+"""The port's CUDA kernels (K1, K2, K3) against their plain PyTorch versions
+on an NVIDIA GPU, at small shapes, plus the launch counters.
+
+These need the card: each test skips when torch.cuda.is_available() is
+False. The file imports neither jax nor the JAX package, so it runs on a
+machine with only torch; there run it without the repository's conftest
+(which sets up JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from qpp_fusion_rag_tpu_torch.ops.kernels import bitonic, dense_topk, window_gather
+
+pytestmark = pytest.mark.cuda
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return torch.device("cuda")
+
+
+def _counted(module, fn):
+    before = module.LAUNCHES
+    out = fn()
+    torch.cuda.synchronize()
+    assert module.LAUNCHES == before + 1
+    return out
+
+
+# ---------------------------------------------------------------- K3 ------
+
+@pytest.mark.parametrize("P,cap,offset", [(100_000, 2048, 0), (100_000, 2048, 1),
+                                           (50_003, 37, 0), (4096, 4096, 0)])
+def test_k3_matches_plain(cuda, P, cap, offset):
+    rng = np.random.default_rng(P + cap)
+    base = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, P + offset,
+                                        dtype=np.int64).astype(np.int32))
+    src = base[offset:]     # offset 1: a view 4 bytes past a 16-byte boundary
+    starts = rng.integers(0, P - cap + 1, 300).astype(np.int32)
+    starts[:4] = np.clip([0, 1, P - cap, P - cap - 3], 0, P - cap)
+    st = torch.as_tensor(starts)
+    src_d = base.to(cuda)[offset:]
+    out = _counted(window_gather, lambda: window_gather.gather_windows(src_d, st.to(cuda), cap))
+    ref = window_gather.gather_windows_plain(src, st, cap)
+    assert torch.equal(out.cpu(), ref)
+
+
+# ---------------------------------------------------------------- K2 ------
+
+def _keys(B, M, cap, rng):
+    """Presorted alternating cap-blocks (start_block 2*cap) with both pads."""
+    tq = M // cap
+    keys = np.empty((B, tq, cap), np.int64)
+    for b in range(B):
+        for t in range(tq):
+            n = int(rng.integers(0, cap + 1))
+            d = np.sort(rng.choice(1 << 20, n, replace=False)).astype(np.int64)
+            w = (d << 8) | rng.integers(0, 256, n)
+            pad = INT32_MIN if t % 2 else INT32_MAX
+            keys[b, t] = np.concatenate([w[::-1] if t % 2 else w, np.full(cap - n, pad)])
+    return keys.reshape(B, M).astype(np.int32)
+
+
+@pytest.mark.parametrize("B,M,cap,plus_one", [
+    (8, 1024, 128, False), (8, 2048, 128, True), (4, 16384, 2048, False),
+    (2, 32768, 2048, True), (3, 12288, 2048, False)])
+def test_k2_presorted_matches_plain(cuda, B, M, cap, plus_one):
+    rng = np.random.default_rng(M)
+    keys = torch.as_tensor(_keys(B, M, cap, rng))
+    sums, sids = _counted(bitonic, lambda: bitonic.bitonic_segsum_rows(
+        keys.to(cuda), start_block=2 * cap, plus_one=plus_one, max_run=M // cap))
+    r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys, plus_one)
+    assert torch.equal(sids.cpu(), r_sids)
+    assert torch.equal(sums.cpu(), r_sums)       # exact everywhere, pads included
+
+
+@pytest.mark.parametrize("B,M", [(8, 1024), (5, 1000), (2, 32768), (1, 3)])
+def test_k2_random_rows_match_plain(cuda, B, M):
+    """Unsorted rows (start_block 2) with long pad runs and repeated docs,
+    including row lengths that are no power of two."""
+    rng = np.random.default_rng(M + 1)
+    keys = ((rng.integers(0, 300, (B, M)) << 8) | rng.integers(0, 256, (B, M)))
+    keys[:, : M // 5] = INT32_MAX
+    keys[:, -(M // 7):] = INT32_MIN
+    keys = torch.as_tensor(keys.astype(np.int32))
+    sums, sids = _counted(bitonic, lambda: bitonic.bitonic_segsum_rows(keys.to(cuda)))
+    r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys)
+    assert torch.equal(sids.cpu(), r_sids)
+    assert torch.equal(sums.cpu(), r_sums)
+
+
+def test_k2_refuses_rows_beyond_shared_memory(cuda):
+    with pytest.raises(ValueError, match="ROADMAP"):
+        bitonic.bitonic_segsum_rows(torch.zeros((1, 65536), dtype=torch.int32, device=cuda))
+
+
+# ---------------------------------------------------------------- K1 ------
+
+@pytest.mark.parametrize("M,N,D,n_real", [(100, 5000, 64, None), (256, 8192, 768, None),
+                                           (130, 4096, 128, 3000), (1, 129, 16, None)])
+def test_k1_matches_plain_bits(cuda, M, N, D, n_real):
+    g = torch.Generator().manual_seed(M + N + D)
+    q_int, _ = dense_topk.quantize_rows(torch.randn(M, D, generator=g))
+    rows, scale = dense_topk.quantize_rows(torch.randn(N, D, generator=g))
+    scale = scale[:, 0].contiguous()
+    rows[7] = 0                               # a zero-score doc: denormal after packing
+    out = _counted(dense_topk, lambda: dense_topk.group_max_packed_int8(
+        q_int.to(cuda), rows.to(cuda), scale.to(cuda), n_real=n_real))
+    ref = dense_topk.group_max_packed_int8_plain(q_int, rows, scale,
+                                                 N if n_real is None else n_real)
+    assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+def test_dense_topk_int8_matches_cpu(cuda):
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(64, 128, generator=g)
+    rows, scale = dense_topk.quantize_rows(torch.randn(20_000, 128, generator=g))
+    scale = scale[:, 0].contiguous()
+    s_d, i_d = dense_topk.dense_topk_int8(q.to(cuda), rows.to(cuda), scale.to(cuda), k=100)
+    s_c, i_c = dense_topk.dense_topk_int8(q, rows, scale, k=100)
+    assert torch.equal(i_d.cpu(), i_c)
+    assert torch.equal(s_d.cpu(), s_c)
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    q = torch.zeros((4, 24), dtype=torch.int8, device=cuda)   # D % 16 != 0
+    rows = torch.zeros((256, 24), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        dense_topk.group_max_packed_int8(q, rows, torch.ones(256, device=cuda))
+    with pytest.raises(ValueError, match="starts on"):
+        window_gather.gather_windows(torch.zeros(64, dtype=torch.int32, device=cuda),
+                                     torch.zeros(2, dtype=torch.int32), 8)
