@@ -23,16 +23,19 @@
 // (run-start-seen, partial-sum) pair, a block-wide segmented exclusive scan
 // of those pairs (warp shuffles) gives every chunk its carry-in, and a second
 // pass over the chunk writes the run totals. Shared memory is indexed with
-// one pad word per 32 keys so the chunk walks hit 32 distinct banks.
+// one pad word per 32 keys so the chunk walks hit 32 distinct banks. The
+// compare-exchange network is the one in bitonic_common.cuh, shared with K4
+// and K5.
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "bitonic_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kMaxRow = 32768;
+using qfr_bitonic::kThreads;
+using qfr_bitonic::slot;
 
-__device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
 __device__ __forceinline__ int sid_of(int key) {
   return static_cast<int>(static_cast<unsigned>(key) >> 8);
 }
@@ -60,25 +63,10 @@ __global__ void __launch_bounds__(kThreads) bitonic_segsum_kernel(
   __shared__ int warp_s[kThreads / 32];
   const long long row = blockIdx.x;
   const int* in = keys + row * M;
-  for (int i = threadIdx.x; i < Mp; i += kThreads) x[slot(i)] = i < M ? in[i] : INT_MAX;
-  __syncthreads();
-
-  // bitonic network: at round k, pairs (i, i + j) with bit j of i clear
-  // sort ascending where bit k of i is clear (k = Mp: everywhere)
-  for (int k = start_block; k <= Mp; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < (Mp >> 1); t += kThreads) {
-        const int i = 2 * t - (t & (j - 1));
-        const int l = i + j;
-        const int a = x[slot(i)], b = x[slot(l)];
-        if ((a > b) == ((i & k) == 0)) {
-          x[slot(i)] = b;
-          x[slot(l)] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  qfr_bitonic::load_row(x, in, M, Mp, INT_MAX);
+  // at round k, pairs (i, i + j) with bit j of i clear sort ascending where
+  // bit k of i is clear (k = Mp: everywhere)
+  qfr_bitonic::network(x, Mp, start_block, Mp);
 
   // segmented scan over the first M sorted keys, chunk per thread
   const int chunk = (M + kThreads - 1) / kThreads;
@@ -142,12 +130,10 @@ __global__ void __launch_bounds__(kThreads) bitonic_segsum_kernel(
 
 extern "C" int qfr_bitonic_segsum(const void* keys, int B, int M, int start_block,
                                   int plus_one, void* sums, void* sids, void* stream) {
-  int Mp = 2;
-  while (Mp < M) Mp <<= 1;
-  if (Mp > kMaxRow || start_block < 2 || start_block > Mp ||
-      (start_block & (start_block - 1)) != 0)
+  const int Mp = qfr_bitonic::padded_len(M);
+  if (M < 1 || Mp > qfr_bitonic::kMaxRow || !qfr_bitonic::valid_start_block(start_block, Mp))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(Mp + Mp / 32) * sizeof(int);
+  const size_t smem = qfr_bitonic::smem_bytes(Mp);
   cudaError_t err = cudaFuncSetAttribute(
       bitonic_segsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

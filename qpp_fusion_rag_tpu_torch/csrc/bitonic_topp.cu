@@ -1,0 +1,78 @@
+// K4: the exact top-bs values of each row of [B, M] int32 keys, returned as
+// a [B, bs] block sorted ascending.
+//
+// Replaces qpp_fusion_rag_tpu/ops/pallas/bitonic.py:bitonic_topp_rows
+// (_bitonic_topp_kernel). Contract kept: bs a power of two >= 1024 with
+// 2*bs <= M; element [bs - pool - 1] of the output is the true (pool+1)-th
+// value of the row (the rank-safe pool's outside maximum). The output is a
+// function of the keys alone, so it equals the plain sort bit for bit. The
+// TPU's rules on M (a power of two, a multiple of 1024) do not apply: a row
+// of any length up to 32,768 keys is padded with INT32_MIN inside shared
+// memory, which can never enter the top bs.
+//
+// Bound on the H100: shared-memory bandwidth and block-wide barriers, as for
+// K2 (at [1024, 32768] and bs 1024: 55 network stages over 16,384 pairs, then
+// 5 pairing rounds of 11 barriers each over a halving row).
+//
+// Design: a tournament in one CTA of 1024 threads per row, the row in
+// dynamic shared memory. The shared network runs up to stop_block = bs,
+// leaving bs-blocks sorted alternately ascending / descending. Each pairing
+// round then keeps the elementwise max of adjacent blocks (an ascending and a
+// descending block: exactly the top bs of their union, as a bitonic
+// sequence) in the even block's place, and bitonic-merges every surviving
+// block, direction by its new parity. Survivors stay where they are (no
+// compaction copy): after g rounds logical block b lives at physical block
+// b << g. The last block is logical block 0, ascending, at physical 0.
+#include <climits>
+#include <cuda_runtime.h>
+
+#include "bitonic_common.cuh"
+
+namespace {
+
+using qfr_bitonic::kThreads;
+using qfr_bitonic::slot;
+
+__global__ void __launch_bounds__(kThreads) bitonic_topp_kernel(
+    const int* __restrict__ keys, int M, int Mp, int bs, int lbs, int start_block,
+    int* __restrict__ out) {
+  extern __shared__ int x[];  // Mp keys at slot(i)
+  const long long row = blockIdx.x;
+  qfr_bitonic::load_row(x, keys + row * M, M, Mp, INT_MIN);
+  qfr_bitonic::network(x, Mp, start_block, bs);
+
+  int n = Mp;
+  for (int gap = 0; n > bs; ++gap) {
+    const qfr_bitonic::Strided cur{lbs, gap};
+    for (int t = threadIdx.x; t < (n >> 1); t += kThreads) {
+      const int lo = (((t >> lbs) << 1) << lbs) | (t & (bs - 1));  // block 2b, element e
+      const int plo = slot(cur(lo)), phi = slot(cur(lo + bs));
+      x[plo] = max(x[plo], x[phi]);
+    }
+    __syncthreads();
+    n >>= 1;
+    const qfr_bitonic::Strided next{lbs, gap + 1};
+    for (int j = bs >> 1; j > 0; j >>= 1) qfr_bitonic::stage(x, n, j, bs, next);
+  }
+  int* o = out + row * bs;
+  for (int i = threadIdx.x; i < bs; i += kThreads) o[i] = x[slot(i)];
+}
+
+}  // namespace
+
+extern "C" int qfr_bitonic_topp(const void* keys, int B, int M, int bs, int start_block,
+                                void* out, void* stream) {
+  const int Mp = qfr_bitonic::padded_len(M);
+  int lbs = 0;
+  while ((1 << lbs) < bs) ++lbs;
+  if (M < 1 || Mp > qfr_bitonic::kMaxRow || bs < 1024 || (1 << lbs) != bs || 2 * bs > M ||
+      !qfr_bitonic::valid_start_block(start_block, Mp) || start_block > 2 * bs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = qfr_bitonic::smem_bytes(Mp);
+  cudaError_t err = cudaFuncSetAttribute(
+      bitonic_topp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bitonic_topp_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(keys), M, Mp, bs, lbs, start_block, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels and load them through ctypes.
 
-Every ``csrc/*.cu`` source compiles with nvcc into ONE shared library with
-a plain C interface, ``build/torch_kernels/lib<hash>.so`` under the
-checkout, keyed by a hash of the sources and flags, so an unchanged tree
-builds once. No PyTorch headers are included: a plain-C build takes
+Every ``csrc/*.cu`` source compiles with its own nvcc process, all started
+together, and the objects link into ONE shared library with a plain C
+interface, ``build/torch_kernels/lib<hash>.so`` under the checkout, keyed
+by a hash of the sources (``*.cuh`` included) and flags, so an unchanged
+tree builds once. No PyTorch headers are included: a plain-C build takes
 seconds where a ``torch.utils.cpp_extension`` build takes minutes.
 
 The flags deliberately omit ``-use_fast_math`` / ``-ftz=true``: the dense
@@ -31,8 +32,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argtypes (every entry returns int: a cudaError_t)
@@ -41,6 +42,12 @@ SIGNATURES = {
     "qfr_gather_windows": (_P, _LL, _P, _LL, _I, _P, _I, _P),
     # keys, B, M, start_block, plus_one, sums, sids, stream
     "qfr_bitonic_segsum": (_P, _I, _I, _I, _I, _P, _P, _P),
+    # keys, B, M, start_block, out, stream
+    "qfr_bitonic_sort": (_P, _I, _I, _I, _P, _P),
+    # keys, B, M, bs, start_block, out, stream
+    "qfr_bitonic_topp": (_P, _I, _I, _I, _I, _P, _P),
+    # doc_packed, N, Td, cand_ids, G, C, q_terms, q_weights, Tq, imp_bits, vec, out, stream
+    "qfr_rescore_match": (_P, _LL, _I, _P, _LL, _I, _P, _P, _I, _I, _I, _P, _P),
     # q, corpus_rows, d_scale, M, N, D, n_real, out, stream
     "qfr_group_max_packed_int8": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
 }
@@ -77,22 +84,42 @@ def library_path() -> Path:
 
 
 def build_library():
-    """Compile csrc/*.cu unless the hashed library exists.
+    """Compile csrc/*.cu unless the hashed library exists: one nvcc process
+    per source, all running at once, then one link.
     -> (path, seconds spent compiling (0.0 on a hit), compiler log)."""
     path = library_path()
     if path.is_file():
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, path)
-    return path, seconds, log
+    try:
+        procs = [(src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src, obj in zip(_sources(), objs)]
+        logs, failed = [], []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{' '.join(cmd)}\n"
+                               f"{r.stdout}{r.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return path, time.perf_counter() - t0, log
 
 
 @functools.cache

@@ -1,7 +1,16 @@
-"""K2: fused row sort + exact segmented run-sum (csrc/bitonic_segsum.cu).
+"""Row-wise bitonic kernels over int32 keys, one CTA per row in shared
+memory, all three on the network of csrc/bitonic_common.cuh:
 
-Counterpart of qpp_fusion_rag_tpu/ops/pallas/bitonic.py
-bitonic_segsum_rows, same contract:
+  K2 bitonic_segsum_rows (csrc/bitonic_segsum.cu): sort + exact run sums;
+  K4 bitonic_topp_rows   (csrc/bitonic_topp.cu):   exact top-bs block;
+  K5 bitonic_sort_rows   (csrc/bitonic_sort.cu):   ascending sort.
+
+Counterparts of the functions of the same names in
+qpp_fusion_rag_tpu/ops/pallas/bitonic.py, without the TPU's shape rules (M
+a power of two and a multiple of 1024, B a multiple of 8): rows of any
+length up to MAX_ROW keys are padded inside shared memory.
+
+K2 keeps bitonic_segsum_rows' contract:
   -> (sums [B, M] int32: each doc run's total of (q8 + plus_one) at the
       run's LAST position, -1 elsewhere;
       sids [B, M] int32: sorted doc ids by LOGICAL shift, so the INT32_MIN
@@ -16,10 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from qpp_fusion_rag_tpu_torch.ops.kernels import _build
+from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES, _build
 from qpp_fusion_rag_tpu_torch.ops.segment import segmented_sums_presorted_i32
 
-LAUNCHES = 0
 MAX_ROW = 32768   # a row must fit one CTA's shared memory (128 KB + pad)
 
 
@@ -27,7 +35,7 @@ def _padded_len(M: int) -> int:
     return 1 << max(1, (M - 1).bit_length())
 
 
-def _check(keys: torch.Tensor, start_block: int, max_run) -> None:
+def _check_keys(keys: torch.Tensor, start_block: int) -> None:
     if keys.dtype != torch.int32 or keys.dim() != 2 or not keys.is_contiguous():
         raise ValueError(f"keys must be a contiguous [B, M] int32 tensor, got "
                          f"{keys.dtype} {tuple(keys.shape)}")
@@ -40,8 +48,18 @@ def _check(keys: torch.Tensor, start_block: int, max_run) -> None:
     if start_block > 2 and M % (start_block // 2):
         raise ValueError(f"M={M} must be a multiple of start_block/2 = "
                          f"{start_block // 2} (presorted blocks)")
-    if max_run is not None and max_run < 1:
-        raise ValueError(f"max_run={max_run} must be >= 1")
+
+
+def _cuda_row_fits(keys: torch.Tensor, kernel: str) -> None:
+    """The device rule of every CUDA wrapper here: a CUDA tensor whose
+    padded row fits one CTA's shared memory."""
+    if keys.device.type != "cuda":
+        raise ValueError(f"unsupported device {keys.device}")
+    M = keys.shape[1]
+    if _padded_len(M) > MAX_ROW:
+        raise ValueError(
+            f"row length M={M} exceeds the kernel's one-CTA shared-memory row "
+            f"({MAX_ROW} keys); longer rows are ROADMAP work (Queue 2, {kernel})")
 
 
 def bitonic_segsum_rows_plain(keys: torch.Tensor, plus_one: bool = False):
@@ -63,17 +81,13 @@ def bitonic_segsum_rows(keys: torch.Tensor, start_block: int = 2,
     length exactly, so it is validated and otherwise not needed.
     CPU tensors take the plain version; CUDA tensors launch K2
     (M <= 32768 per row)."""
-    global LAUNCHES
-    _check(keys, start_block, max_run)
+    _check_keys(keys, start_block)
+    if max_run is not None and max_run < 1:
+        raise ValueError(f"max_run={max_run} must be >= 1")
     if keys.device.type == "cpu":
         return bitonic_segsum_rows_plain(keys, plus_one)
-    if keys.device.type != "cuda":
-        raise ValueError(f"unsupported device {keys.device}")
+    _cuda_row_fits(keys, "K2")
     B, M = keys.shape
-    if _padded_len(M) > MAX_ROW:
-        raise ValueError(
-            f"row length M={M} exceeds the kernel's one-CTA shared-memory row "
-            f"({MAX_ROW} keys); longer rows are ROADMAP work (Queue 2, K2)")
     sums = torch.empty_like(keys)
     sids = torch.empty_like(keys)
     if B == 0:
@@ -84,5 +98,68 @@ def bitonic_segsum_rows(keys: torch.Tensor, start_block: int = 2,
                                     int(plus_one), sums.data_ptr(), sids.data_ptr(),
                                     _build.stream_of(keys))
     _build.check(lib, rc, "bitonic_segsum_rows")
-    LAUNCHES += 1
+    LAUNCHES["bitonic_segsum_rows"] += 1
     return sums, sids
+
+
+def bitonic_sort_rows_plain(keys: torch.Tensor) -> torch.Tensor:
+    return torch.sort(keys, dim=-1).values
+
+
+def bitonic_sort_rows(keys: torch.Tensor, start_block: int = 2) -> torch.Tensor:
+    """Sort each row of [B, M] int32 keys ascending -> [B, M] int32.
+
+    start_block > 2 promises aligned start_block/2 blocks sorted alternately
+    ascending/descending; the kernel then skips the rounds before it.
+    CPU tensors take the plain version (torch.sort); CUDA tensors launch K5
+    (M <= 32768 per row)."""
+    _check_keys(keys, start_block)
+    if keys.device.type == "cpu":
+        return bitonic_sort_rows_plain(keys)
+    _cuda_row_fits(keys, "K5")
+    B, M = keys.shape
+    out = torch.empty_like(keys)
+    if B == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(keys.device):
+        rc = lib.qfr_bitonic_sort(keys.data_ptr(), B, M, start_block, out.data_ptr(),
+                                  _build.stream_of(keys))
+    _build.check(lib, rc, "bitonic_sort_rows")
+    LAUNCHES["bitonic_sort_rows"] += 1
+    return out
+
+
+def bitonic_topp_rows_plain(keys: torch.Tensor, bs: int) -> torch.Tensor:
+    return torch.sort(keys, dim=-1).values[:, keys.shape[1] - bs:]
+
+
+def bitonic_topp_rows(keys: torch.Tensor, bs: int = 1024,
+                      start_block: int = 2) -> torch.Tensor:
+    """The exact top-`bs` values of each row of [B, M] int32 keys as a
+    [B, bs] block sorted ascending: element [bs - pool - 1] is the true
+    (pool+1)-th value. bs must be a power of two >= 1024 with 2*bs <= M (the
+    JAX wrapper's rule); start_block as in bitonic_sort_rows, at most 2*bs.
+    CPU tensors take the plain version; CUDA tensors launch K4 (M <= 32768
+    per row). Both return the same block bit for bit: it is a function of
+    the keys alone."""
+    _check_keys(keys, start_block)
+    M = keys.shape[1]
+    if bs & (bs - 1) or bs < 1024 or 2 * bs > M:
+        raise ValueError(f"bs={bs} must be a power of two in [1024, M/2 = {M // 2}]")
+    if start_block > 2 * bs:
+        raise ValueError(f"start_block={start_block} must be at most 2*bs = {2 * bs}")
+    if keys.device.type == "cpu":
+        return bitonic_topp_rows_plain(keys, bs)
+    _cuda_row_fits(keys, "K4")
+    B = keys.shape[0]
+    out = torch.empty((B, bs), dtype=torch.int32, device=keys.device)
+    if B == 0:
+        return out
+    lib = _build.load_library()
+    with torch.cuda.device(keys.device):
+        rc = lib.qfr_bitonic_topp(keys.data_ptr(), B, M, bs, start_block, out.data_ptr(),
+                                  _build.stream_of(keys))
+    _build.check(lib, rc, "bitonic_topp_rows")
+    LAUNCHES["bitonic_topp_rows"] += 1
+    return out

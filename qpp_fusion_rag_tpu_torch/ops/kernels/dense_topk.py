@@ -13,12 +13,11 @@ from __future__ import annotations
 
 import torch
 
-from qpp_fusion_rag_tpu_torch.ops.kernels import _build
+from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES, _build
 from qpp_fusion_rag_tpu_torch.ops.segment import topk_first
 
 GROUP = 128          # docs per emitted candidate
 NEG_FINITE = -3.0e38  # pad-doc score: finite, so lane bits never make a NaN
-LAUNCHES = 0
 PLAIN_CHUNK = 131_072  # docs per plain-version matmul (bounds its memory)
 
 
@@ -93,7 +92,6 @@ def group_max_packed_int8(q_int: torch.Tensor, corpus_rows: torch.Tensor,
     max of float(int8 dot) * d_scale[n] with the doc's lane (n & 127) in the
     low 7 mantissa bits; docs n >= n_real (default N) score -3e38.
     CPU tensors take the plain version; CUDA tensors launch K1."""
-    global LAUNCHES
     N = corpus_rows.shape[0] if corpus_rows.dim() == 2 else 0
     n_real = N if n_real is None else int(n_real)
     _check(q_int, corpus_rows, d_scale, n_real)
@@ -114,7 +112,7 @@ def group_max_packed_int8(q_int: torch.Tensor, corpus_rows: torch.Tensor,
             q_int.data_ptr(), corpus_rows.data_ptr(), d_scale.data_ptr(),
             M, N, D, n_real, out.data_ptr(), _build.stream_of(q_int))
     _build.check(lib, rc, "group_max_packed_int8")
-    LAUNCHES += 1
+    LAUNCHES["group_max_packed_int8"] += 1
     return out
 
 

@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from qpp_fusion_rag_tpu_torch.ops.kernels import _build
+from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES, _build
 
-LAUNCHES = 0
 
 
 def _check(src: torch.Tensor, starts: torch.Tensor, cap: int) -> None:
@@ -41,7 +40,6 @@ def gather_windows(src: torch.Tensor, starts: torch.Tensor, cap: int) -> torch.T
     """[G, cap] int32 windows of src at starts (0 <= s <= P - cap).
 
     CPU tensors take the plain version; CUDA tensors launch K3."""
-    global LAUNCHES
     _check(src, starts, cap)
     if src.device.type == "cpu":
         return gather_windows_plain(src, starts, cap)
@@ -58,5 +56,5 @@ def gather_windows(src: torch.Tensor, starts: torch.Tensor, cap: int) -> torch.T
         rc = lib.qfr_gather_windows(src.data_ptr(), src.shape[0], starts.data_ptr(),
                                     G, cap, out.data_ptr(), vec, _build.stream_of(src))
     _build.check(lib, rc, "gather_windows")
-    LAUNCHES += 1
+    LAUNCHES["gather_windows"] += 1
     return out

@@ -1,18 +1,22 @@
-"""Heterogeneous ensemble serving step in q8 mode:
+"""Heterogeneous ensemble serving step in q8 and rank-safe q8r mode:
 
-    view 1: BM25 impacts      — q8 windowed sparse scoring (K3 + K2)
+    view 1: BM25 impacts      — q8 windowed sparse scoring (K3 + K2); q8r
+                                adds the bitonic pool (K4 / K5) and the
+                                exact doc-vector rescore (K6)
     view 2: SPLADE impacts    — the same over a second index
-    view 3: dense             — int8 scores + packed group max (K1)
+    view 3: dense             — int8 scores + packed group max (K1); with
+                                dense_rescore_pool, the pool reranked on
+                                the rerank rows
     view 4: BM25→dense rerank — gather BM25's top-k candidate rows,
     view 5: BM25→dense rerank   rescore with a per-view projection
 
 then the 13 QPP statistics per view and QPP-weighted fusion.
 
 Counterpart of qpp_fusion_rag_tpu/pipeline/ensemble.py for sparse_mode
-"q8"; the rank-safe ("q8r"), certified ("q8c"), "sort" and window-rescore
-modes, the learned MLP weights and the rank-safe dense pool raise
-NotImplementedError until ported (ROADMAP Queue 1). Everything runs on the
-device the index tensors live on; there is no jit: PyTorch runs eagerly.
+"q8" and "q8r"; the certified ("q8c"), "sort" and window-rescore modes and
+the learned MLP weights raise NotImplementedError until ported (ROADMAP
+Queue 1). Everything runs on the device the index tensors live on; there
+is no jit: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import dense_topk_int8
 from qpp_fusion_rag_tpu_torch.ops.qpp import normalize_qpp_with
 from qpp_fusion_rag_tpu_torch.ops.sparse import (
     sparse_score_topk_q8,
+    sparse_score_topk_q8_rescored,
     validate_presorted_cap,
 )
 from qpp_fusion_rag_tpu_torch.pipeline.engine import qpp_from_runs, weight_and_fuse
@@ -34,12 +39,16 @@ _ROADMAP = "not ported yet (ROADMAP Queue 1)"
 
 
 class EnsembleIndexes(NamedTuple):
-    """Device tensors of the q8 ensemble (shared doc-id space 0..N).
+    """Device tensors of the ensemble (shared doc-id space 0..N).
 
-    One dense layout: row-major corpus_rows [N, D] int8 serves both the
-    dense kernel and the rerank gather (the JAX package also keeps a
-    [D, N] copy); d_scale is flat [N]. Build through
-    pipeline.interop.indexes_from_numpy."""
+    One int8 dense layout: row-major corpus_rows [N, D] int8 serves the
+    dense kernel and, unless rerank_rows is given, the rerank gather (the
+    JAX package also keeps a [D, N] copy); d_scale is flat [N]. rerank_rows
+    [N, D] bf16/f32, where given, is what the rerank views and the rank-safe
+    dense pool gather: the JAX rank-safe index puts those rows in its
+    corpus_rows. The doc-vector fields (pack_doc_vectors) serve
+    sparse_mode "q8r"; doc_imp_bits is metadata, the imp_bits they were
+    packed with. Build through pipeline.interop.indexes_from_numpy."""
     bm25_packed: torch.Tensor     # [P1] int32 (doc << 8 | uint8 impact)
     bm25_scales: torch.Tensor     # [T1] f32
     bm25_offsets: torch.Tensor    # [T1+1] int32
@@ -48,23 +57,46 @@ class EnsembleIndexes(NamedTuple):
     splade_offsets: torch.Tensor  # [T2+1] int32
     corpus_rows: torch.Tensor     # [N, D] int8, per-doc symmetric quantization
     d_scale: torch.Tensor         # [N] f32 per-doc dequant scale
+    rerank_rows: Optional[torch.Tensor] = None        # [N, D] bf16 / f32
+    bm25_doc_packed: Optional[torch.Tensor] = None    # [N, Td1] int32
+    bm25_doc_scale: Optional[torch.Tensor] = None     # [N] f32
+    splade_doc_packed: Optional[torch.Tensor] = None  # [N, Td2] int32
+    splade_doc_scale: Optional[torch.Tensor] = None   # [N] f32
+    doc_imp_bits: Optional[int] = None
 
 
 def make_sparse_scorer(sparse_mode: str, sparse_candidates: int, k: int,
-                       p_cap: int, presorted: bool = False):
-    """-> scorer(packed, offsets, scales, terms, qw) -> (scores [B, k] desc,
-    doc ids [B, k], -1 pad). Only sparse_mode="q8" without a window-rescore
-    pool (sparse_candidates == 0) is ported."""
-    if sparse_mode in ("q8r", "q8c", "sort") or (
+                       p_cap: int, imp_bits: int = 8, presorted: bool = False,
+                       sort_ids: bool = False):
+    """-> scorer(packed, offsets, scales, terms, qw, doc_packed=None,
+    doc_scale=None) -> (scores [B, k] desc, doc ids [B, k], -1 pad).
+
+    "q8": the windowed q8 scorer (sparse_candidates must be 0: the
+    sort-free window rescore is not ported). "q8r": the rank-safe scorer,
+    a pool of sparse_candidates (512 when 0) rescored against the doc
+    vectors, which the scorer then requires."""
+    if sparse_mode in ("q8c", "sort") or (
             sparse_mode == "q8" and sparse_candidates > 0):
         raise NotImplementedError(
             f"sparse_mode={sparse_mode!r} with sparse_candidates="
-            f"{sparse_candidates} is {_ROADMAP}; use sparse_mode='q8', "
-            "sparse_candidates=0")
+            f"{sparse_candidates} is {_ROADMAP}; use sparse_mode='q8' with "
+            "sparse_candidates=0, or 'q8r'")
+    if sparse_mode == "q8r":
+        cand = sparse_candidates if sparse_candidates > 0 else 512
+
+        def scorer(packed, offsets, scales, terms, qw, doc_packed=None, doc_scale=None):
+            if doc_packed is None or doc_scale is None:
+                raise ValueError("sparse_mode='q8r' needs doc-major vectors "
+                                 "(pack_doc_vectors) on the index")
+            return sparse_score_topk_q8_rescored(
+                packed, offsets, scales, doc_packed, doc_scale, terms, qw, k=k,
+                p_cap=p_cap, candidates=cand, imp_bits=imp_bits, presorted=presorted,
+                sort_ids=sort_ids)
+        return scorer
     if sparse_mode != "q8":
         raise ValueError(f"unknown sparse_mode {sparse_mode!r}")
 
-    def scorer(packed, offsets, scales, terms, qw):
+    def scorer(packed, offsets, scales, terms, qw, doc_packed=None, doc_scale=None):
         return sparse_score_topk_q8(packed, offsets, scales, terms, qw,
                                     k=k, p_cap=p_cap, presorted=presorted)
     return scorer
@@ -112,6 +144,17 @@ def rerank_candidates(
     cand = corpus_rows[safe.reshape(-1)].reshape(B, K, -1)
     scale = d_scale[safe] if corpus_rows.dtype == torch.int8 else None
     return score_candidates(q_vec, cand, cand_ids, scale)
+
+
+def dense_view_rescored(q_emb: torch.Tensor, corpus_rows: torch.Tensor,
+                        d_scale: torch.Tensor, rerank_rows: torch.Tensor,
+                        k: int, pool: int):
+    """Rank-safe dense view: the int8 kernel (K1) pools the top
+    max(pool, k) docs, the pooled rows of rerank_rows rescore them at their
+    storage precision, and the top k remain. -> (scores [B, k], ids [B, k])."""
+    _, ci = dense_view_topk(q_emb, corpus_rows, d_scale, max(pool, k))
+    rs, ri = rerank_candidates(q_emb, ci, rerank_rows, d_scale)
+    return rs[..., :k], ri[..., :k]
 
 
 def fuse_tail(
@@ -166,34 +209,46 @@ def ensemble_retrieval_step(
     sparse_mode: str = "q8",
     mlp_params=None,
     qpp_norm_stats=None,        # [5, 2, 13] calibration min/max
-    dense_rescore_pool: int = 0,
-    sparse_presorted: bool = False,
+    doc_imp_bits: Optional[int] = None,   # pack_doc_vectors precision
+    dense_rescore_pool: int = 0,          # > 0: rank-safe dense view
+    sparse_presorted: bool = False,       # dual doc-ordered posting layout
+    sparse_sort_ids: bool = False,        # ascending-id rescore gather
 ):
     """5-view retrieve -> QPP -> weighted fuse on idx's device.
     -> (fused_ids [B, k_out], fused_scores [B, k_out], qpp [5, B, 13]).
 
-    Inputs may be numpy arrays or tensors; they move to idx's device. With
-    sparse_presorted=True, p_cap is checked against the dual layout's build
-    cap first (a smaller p_cap silently reads doc-id-prefix subsets). The
-    default sparse_mode is "q8", the only mode ported."""
-    if dense_rescore_pool > 0:
-        raise NotImplementedError(f"the rank-safe dense pool is {_ROADMAP}")
+    Inputs may be numpy arrays or tensors; they move to idx's device.
+    doc_imp_bits is reconciled with idx.doc_imp_bits (resolve_doc_imp_bits).
+    With sparse_presorted=True, p_cap is checked against the dual layout's
+    build cap first (a smaller p_cap silently reads doc-id-prefix subsets);
+    the check is cached per offsets tensor, so steady-state serving pays
+    nothing. The rerank views and the dense pool gather idx.rerank_rows
+    where given, else the int8 corpus_rows."""
+    imp_bits = resolve_doc_imp_bits(idx.doc_imp_bits, doc_imp_bits)
     dev = idx.bm25_packed.device
     if sparse_presorted:
         validate_presorted_cap(idx.bm25_offsets, p_cap)
         validate_presorted_cap(idx.splade_offsets, p_cap)
     sparse = make_sparse_scorer(sparse_mode, sparse_candidates, k, p_cap,
-                                presorted=sparse_presorted)
+                                imp_bits=imp_bits, presorted=sparse_presorted,
+                                sort_ids=sparse_sort_ids)
     bm25_s, bm25_i = sparse(idx.bm25_packed, idx.bm25_offsets, idx.bm25_scales,
                             _on(bm25_terms, dev, torch.int32),
-                            _on(bm25_qw, dev, torch.float32))
+                            _on(bm25_qw, dev, torch.float32),
+                            idx.bm25_doc_packed, idx.bm25_doc_scale)
     splade_s, splade_i = sparse(idx.splade_packed, idx.splade_offsets, idx.splade_scales,
                                 _on(splade_terms, dev, torch.int32),
-                                _on(splade_qw, dev, torch.float32))
+                                _on(splade_qw, dev, torch.float32),
+                                idx.splade_doc_packed, idx.splade_doc_scale)
     q_emb = _on(q_emb, dev, torch.float32)
-    dense_s, dense_i = dense_view_topk(q_emb, idx.corpus_rows, idx.d_scale, k)
+    rows = idx.corpus_rows if idx.rerank_rows is None else idx.rerank_rows
+    if dense_rescore_pool > 0:
+        dense_s, dense_i = dense_view_rescored(q_emb, idx.corpus_rows, idx.d_scale, rows,
+                                               k, dense_rescore_pool)
+    else:
+        dense_s, dense_i = dense_view_topk(q_emb, idx.corpus_rows, idx.d_scale, k)
     qv = torch.einsum("bd,vdw->vbw", q_emb, _on(rerank_proj, dev, torch.float32))
-    rr_s, rr_i = rerank_candidates(qv, bm25_i, idx.corpus_rows, idx.d_scale)
+    rr_s, rr_i = rerank_candidates(qv, bm25_i, rows, idx.d_scale)
 
     vals = torch.stack([bm25_s, splade_s, dense_s, rr_s[0], rr_s[1]])  # [5, B, K]
     ids = torch.stack([bm25_i, splade_i, dense_i, rr_i[0], rr_i[1]])

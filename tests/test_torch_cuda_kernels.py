@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain PyTorch versions
-on an NVIDIA GPU, at small shapes, plus the launch counters.
+"""The port's CUDA kernels (K1-K6) against their plain PyTorch versions on
+an NVIDIA GPU, at small shapes, plus the launch counters.
 
 These need the card: each test skips when torch.cuda.is_available() is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -13,7 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from qpp_fusion_rag_tpu_torch.ops.kernels import bitonic, dense_topk, window_gather
+from qpp_fusion_rag_tpu_torch.ops.kernels import (
+    LAUNCHES,
+    bitonic,
+    dense_topk,
+    row_gather,
+    window_gather,
+)
 
 pytestmark = pytest.mark.cuda
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
@@ -27,11 +33,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _counted(module, fn):
-    before = module.LAUNCHES
+def _counted(kernel, fn):
+    before = dict(LAUNCHES)
     out = fn()
     torch.cuda.synchronize()
-    assert module.LAUNCHES == before + 1
+    assert LAUNCHES[kernel] == before.get(kernel, 0) + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
     return out
 
 
@@ -48,7 +55,7 @@ def test_k3_matches_plain(cuda, P, cap, offset):
     starts[:4] = np.clip([0, 1, P - cap, P - cap - 3], 0, P - cap)
     st = torch.as_tensor(starts)
     src_d = base.to(cuda)[offset:]
-    out = _counted(window_gather, lambda: window_gather.gather_windows(src_d, st.to(cuda), cap))
+    out = _counted("gather_windows", lambda: window_gather.gather_windows(src_d, st.to(cuda), cap))
     ref = window_gather.gather_windows_plain(src, st, cap)
     assert torch.equal(out.cpu(), ref)
 
@@ -75,7 +82,7 @@ def _keys(B, M, cap, rng):
 def test_k2_presorted_matches_plain(cuda, B, M, cap, plus_one):
     rng = np.random.default_rng(M)
     keys = torch.as_tensor(_keys(B, M, cap, rng))
-    sums, sids = _counted(bitonic, lambda: bitonic.bitonic_segsum_rows(
+    sums, sids = _counted("bitonic_segsum_rows", lambda: bitonic.bitonic_segsum_rows(
         keys.to(cuda), start_block=2 * cap, plus_one=plus_one, max_run=M // cap))
     r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys, plus_one)
     assert torch.equal(sids.cpu(), r_sids)
@@ -91,7 +98,7 @@ def test_k2_random_rows_match_plain(cuda, B, M):
     keys[:, : M // 5] = INT32_MAX
     keys[:, -(M // 7):] = INT32_MIN
     keys = torch.as_tensor(keys.astype(np.int32))
-    sums, sids = _counted(bitonic, lambda: bitonic.bitonic_segsum_rows(keys.to(cuda)))
+    sums, sids = _counted("bitonic_segsum_rows", lambda: bitonic.bitonic_segsum_rows(keys.to(cuda)))
     r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys)
     assert torch.equal(sids.cpu(), r_sids)
     assert torch.equal(sums.cpu(), r_sums)
@@ -100,6 +107,91 @@ def test_k2_random_rows_match_plain(cuda, B, M):
 def test_k2_refuses_rows_beyond_shared_memory(cuda):
     with pytest.raises(ValueError, match="ROADMAP"):
         bitonic.bitonic_segsum_rows(torch.zeros((1, 65536), dtype=torch.int32, device=cuda))
+
+
+# ------------------------------------------------------------ K4, K5 ------
+
+def _pool_keys(B, M, rng):
+    """(sum << 16 | position) keys with many -1 and tied sums."""
+    sums = rng.integers(0, 60, (B, M))
+    sums[rng.random((B, M)) < 0.6] = -1
+    return torch.as_tensor(np.where(sums >= 0, (sums << 16) | np.arange(M), -1)
+                           .astype(np.int32))
+
+
+@pytest.mark.parametrize("B,M", [(8, 1024), (6, 16384), (4, 32768), (5, 3000), (3, 1), (2, 2)])
+def test_k5_matches_plain(cuda, B, M):
+    keys = _pool_keys(B, M, np.random.default_rng(M))
+    out = _counted("bitonic_sort_rows", lambda: bitonic.bitonic_sort_rows(keys.to(cuda)))
+    assert torch.equal(out.cpu(), bitonic.bitonic_sort_rows_plain(keys))
+
+
+@pytest.mark.parametrize("M,cap", [(16384, 2048), (4096, 256)])
+def test_k5_presorted_blocks_match_plain(cuda, M, cap):
+    keys = torch.as_tensor(_keys(4, M, cap, np.random.default_rng(M + cap)))
+    out = _counted("bitonic_sort_rows", lambda: bitonic.bitonic_sort_rows(
+        keys.to(cuda), start_block=2 * cap))
+    assert torch.equal(out.cpu(), bitonic.bitonic_sort_rows_plain(keys))
+
+
+@pytest.mark.parametrize("B,M,bs", [(8, 2048, 1024), (6, 16384, 1024), (4, 32768, 1024),
+                                    (3, 32768, 4096), (5, 5000, 2048), (2, 16384, 8192)])
+def test_k4_matches_plain(cuda, B, M, bs):
+    keys = _pool_keys(B, M, np.random.default_rng(M + bs))
+    out = _counted("bitonic_topp_rows", lambda: bitonic.bitonic_topp_rows(
+        keys.to(cuda), bs=bs))
+    assert torch.equal(out.cpu(), bitonic.bitonic_topp_rows_plain(keys, bs))
+
+
+def test_k4_k5_refuse_rows_beyond_shared_memory(cuda):
+    keys = torch.zeros((1, 32769), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        bitonic.bitonic_sort_rows(keys)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        bitonic.bitonic_topp_rows(keys, bs=1024)
+
+
+# ---------------------------------------------------------------- K6 ------
+
+def _rescore_inputs(N, Td, B, C, Tq, imp_bits, seed):
+    rng = np.random.default_rng(seed)
+    T = 500
+    doc = (rng.integers(0, T, (N, Td)) << imp_bits) | rng.integers(0, 1 << imp_bits, (N, Td))
+    qt = rng.integers(0, T, (B, Tq))
+    qt[:, 1] = qt[:, 0]
+    qt[0, -1] = -1
+    ids = rng.integers(0, N, (B, C))
+    for b in range(B):
+        for c in range(0, C, 2):
+            cols = rng.choice(Td, min(Tq, Td), replace=False)
+            doc[ids[b, c], cols] = (qt[b, :len(cols)].clip(0) << imp_bits) | 7
+    ids[0, :3] = -1
+    return (torch.as_tensor(doc.astype(np.int32)), torch.as_tensor(ids.astype(np.int32)),
+            torch.as_tensor(qt.astype(np.int32)),
+            torch.as_tensor(rng.uniform(0.1, 3.0, (B, Tq)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("N,Td,B,C,Tq,imp_bits", [
+    (20_000, 128, 64, 256, 8, 14), (20_000, 128, 16, 256, 16, 14),
+    (5000, 37, 8, 100, 8, 12), (5000, 256, 4, 33, 4, 8), (3000, 130, 3, 7, 16, 14)])
+def test_k6_matches_plain(cuda, N, Td, B, C, Tq, imp_bits):
+    doc, ids, qt, qw = _rescore_inputs(N, Td, B, C, Tq, imp_bits, seed=N + Td + C)
+    out = _counted("rescore_match", lambda: row_gather.rescore_match(
+        doc.to(cuda), ids.to(cuda), qt.to(cuda), qw.to(cuda), imp_bits))
+    ref = row_gather.rescore_match_plain(doc, ids, qt, qw, imp_bits)
+    assert (ref > 0).float().mean() > 0.4
+    torch.testing.assert_close(out.cpu(), ref, rtol=4e-6, atol=0)
+
+
+def test_k6_unaligned_table_takes_scalar_loads(cuda):
+    doc, ids, qt, qw = _rescore_inputs(4000, 128, 4, 64, 8, 14, seed=1)
+    base = torch.zeros(doc.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted = base[1:].view(doc.shape)          # 4 bytes past a 16-byte boundary
+    shifted.copy_(doc.to(cuda))
+    out = _counted("rescore_match", lambda: row_gather.rescore_match(
+        shifted, ids.to(cuda), qt.to(cuda), qw.to(cuda), 14))
+    torch.testing.assert_close(out.cpu(), row_gather.rescore_match_plain(doc, ids, qt, qw, 14),
+                               rtol=4e-6, atol=0)
 
 
 # ---------------------------------------------------------------- K1 ------
@@ -112,7 +204,7 @@ def test_k1_matches_plain_bits(cuda, M, N, D, n_real):
     rows, scale = dense_topk.quantize_rows(torch.randn(N, D, generator=g))
     scale = scale[:, 0].contiguous()
     rows[7] = 0                               # a zero-score doc: denormal after packing
-    out = _counted(dense_topk, lambda: dense_topk.group_max_packed_int8(
+    out = _counted("group_max_packed_int8", lambda: dense_topk.group_max_packed_int8(
         q_int.to(cuda), rows.to(cuda), scale.to(cuda), n_real=n_real))
     ref = dense_topk.group_max_packed_int8_plain(q_int, rows, scale,
                                                  N if n_real is None else n_real)

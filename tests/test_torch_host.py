@@ -97,3 +97,41 @@ def test_validate_presorted_cap(as_tensor):
         TSP.validate_presorted_cap(off, 32)
     with pytest.raises(ValueError, match="build cap"):
         JSP.validate_presorted_cap(off2, 32)  # the reference refuses it too
+
+
+def test_pack_postings_byte_equal():
+    bo, bd, bw, _ = _csr()
+    _assert_all_equal(JSP.pack_postings(bd, bw, bo), TSP.pack_postings(bd, bw, bo))
+    scales = JSP.term_scales_from_csr(bw, bo) * np.float32(0.75)   # clamps at 255
+    _assert_all_equal(JSP.pack_postings(bd, bw, bo, scales=scales),
+                      TSP.pack_postings(bd, bw, bo, scales=scales))
+
+
+@pytest.mark.parametrize("return_tail", [False, True])
+@pytest.mark.parametrize("imp_bits", [8, 12, 14])
+@pytest.mark.parametrize("doc_cap", [0, 16])
+def test_pack_doc_vectors_array_equal(doc_cap, imp_bits, return_tail):
+    """N=4096; doc_cap 16 truncates the longer docs (tail_max > 0 there)."""
+    bo, bd, bw, _ = JS.zipf_bm25_csr(4096, vocab_size=900, avg_doc_len=25.0, seed=4)
+    kw = dict(doc_cap=doc_cap, imp_bits=imp_bits, return_tail=return_tail)
+    j = JSP.pack_doc_vectors(bo, bd, bw, 4096, **kw)
+    t = TSP.pack_doc_vectors(bo, bd, bw, 4096, **kw)
+    assert j[2] == t[2] and (doc_cap == 0 or t[2] == doc_cap)
+    _assert_all_equal([x for i, x in enumerate(j) if i != 2],
+                      [x for i, x in enumerate(t) if i != 2])
+    if return_tail and doc_cap:
+        assert (t[3] > 0).any()
+
+
+@pytest.mark.parametrize("n_terms", [0, 1, 255, 30_000, 100_000, 2**20, 2**23 - 2])
+def test_doc_vector_imp_bits_equal(n_terms):
+    assert JSP.doc_vector_imp_bits(n_terms) == TSP.doc_vector_imp_bits(n_terms)
+    assert JSP.doc_vector_imp_bits(n_terms, 12) == TSP.doc_vector_imp_bits(n_terms, 12)
+
+
+def test_pack_doc_vectors_refuses_term_ids_beyond_the_sentinel():
+    off = np.array([0] + [1] * (2**17), np.int64)
+    off[-1] = 1
+    with pytest.raises(ValueError, match="imp_bits"):
+        TSP.pack_doc_vectors(off, np.zeros(1, np.int32), np.ones(1, np.float32), 1,
+                             imp_bits=14)

@@ -1,7 +1,8 @@
 """Port parity, kernels: the plain PyTorch versions of K1 (packed int8 group
-max), K2 (sort + segmented run sums) and K3 (window gather) against the JAX
-package's Pallas kernels, run in interpret mode on the CPU. Integer and
-packed-float outputs are compared bit for bit."""
+max), K2 (sort + segmented run sums), K3 (window gather), K4 (top-bs block)
+and K5 (row sort) against the JAX package's Pallas kernels, run in
+interpret mode on the CPU. Integer and packed-float outputs are compared
+bit for bit. K6 is in test_torch_row_gather.py."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +12,8 @@ import torch
 from jax import lax
 
 from qpp_fusion_rag_tpu.ops.pallas.bitonic import bitonic_segsum_rows as j_segsum
+from qpp_fusion_rag_tpu.ops.pallas.bitonic import bitonic_sort_rows as j_sort
+from qpp_fusion_rag_tpu.ops.pallas.bitonic import bitonic_topp_rows as j_topp
 from qpp_fusion_rag_tpu.ops.pallas.dense_topk import (
     group_max_packed_int8 as j_group_max,
     pallas_dense_topk_int8,
@@ -145,6 +148,51 @@ def test_k2_refuses_bad_arguments():
         bitonic.bitonic_segsum_rows(keys.long())
     with pytest.raises(ValueError, match="max_run"):
         bitonic.bitonic_segsum_rows(keys, max_run=0)
+
+
+# ------------------------------------------------------------ K4, K5 ------
+
+def _pool_format_keys(B, M, rng):
+    """(sum << 16 | position) keys as the rank-safe pool forms them, with
+    many -1 (positions off a run) and many tied sums."""
+    sums = rng.integers(0, 40, (B, M))
+    sums[rng.random((B, M)) < 0.6] = -1
+    return np.where(sums >= 0, (sums << 16) | np.arange(M), -1).astype(np.int32)
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+@pytest.mark.parametrize("M", [1024, 2048])
+def test_k5_plain_matches_pallas(M, presorted):
+    rng = np.random.default_rng(M + presorted)
+    if presorted:
+        keys, start_block, _ = _segsum_keys(M, True, rng)
+    else:
+        keys, start_block = _pool_format_keys(8, M, rng), 2
+    ref = np.asarray(j_sort(jnp.asarray(keys), start_block=start_block))
+    out = bitonic.bitonic_sort_rows(torch.as_tensor(keys), start_block=start_block)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("M,bs", [(2048, 1024), (4096, 1024), (4096, 2048)])
+def test_k4_plain_matches_pallas(M, bs):
+    keys = _pool_format_keys(8, M, np.random.default_rng(M + bs))
+    ref = np.asarray(j_topp(jnp.asarray(keys), bs=bs))
+    out = bitonic.bitonic_topp_rows(torch.as_tensor(keys), bs=bs)
+    assert out.shape == (8, bs)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_k4_k5_refuse_bad_arguments():
+    keys = torch.zeros((2, 4096), dtype=torch.int32)
+    for bs in (512, 3000, 4096):
+        with pytest.raises(ValueError, match="bs="):
+            bitonic.bitonic_topp_rows(keys, bs=bs)
+    with pytest.raises(ValueError, match="2\\*bs"):
+        bitonic.bitonic_topp_rows(keys, bs=1024, start_block=4096)
+    with pytest.raises(ValueError, match="start_block"):
+        bitonic.bitonic_sort_rows(keys, start_block=6)
+    with pytest.raises(ValueError, match="int32"):
+        bitonic.bitonic_sort_rows(keys.long())
 
 
 # ---------------------------------------------------------------- K1 ------
