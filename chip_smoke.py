@@ -10,15 +10,21 @@ parallel, into build/torch_kernels/), builds the bench-scale synthetic index
 on the host (2,621,440 docs, BM25 and SPLADE presorted postings at p_cap
 2048, their doc-major term vectors at imp_bits 14 and doc_cap 128) and the
 768-wide dense corpus on the card from a seed (int8 rows for the kernels,
-bf16 rows of the same draws for the rank-safe rerank), holds each kernel
-against its plain PyTorch version at the main paths' shapes, then drives
-the ensemble step over three batches of 1024 queries in q8 mode and three
-in rank-safe q8r mode (256 sparse candidates, a 128-doc dense pool), and
-one q8r BM25 call at 8192 candidates (the pool's full-sort branch). Each
-path checks that every kernel it runs launched, with the counts set to 0
-just before it. Last, the kernel-bearing views are cross-checked against
-the plain versions on CPU copies. Every phase raises on failure. The line
-before the last is a JSON summary of the kernels; the last line is
+bf16 rows of the same draws for the rank-safe rerank and the dense
+flagship), holds each kernel against its plain PyTorch version at the main
+paths' shapes, then drives the ensemble step over three batches of 1024
+queries in q8 mode and three in rank-safe q8r mode (256 sparse candidates,
+a 128-doc dense pool), and one q8r BM25 call at 8192 candidates (the pool's
+full-sort branch). The dense flagship follows (R = 5 views, 5,120 scoring
+rows per batch): K7-K10 against their plain versions on the full corpus
+(K7 in both layouts), fused_retrieval_step over three batches on the int8
+route (K1) and three on the bf16 route (K7), one learned-fusion call, and
+one full-size call of each dense entry point (K8 at stride 4, K9, K10).
+Each path checks that every kernel it runs launched, with the counts set to
+0 just before it. Last, the kernel-bearing views and the flagship's runs
+and fused outputs are cross-checked against the plain versions on CPU
+copies. Every phase raises on failure and prints its seconds. The line
+before the last is a JSON summary of the ten kernels; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -52,6 +58,13 @@ FALLBACK_CANDIDATES = 8192        # bs 16384: 2*bs > M = 16384 for BM25 -> K5
 QUERY_SEEDS = ((1, 2), (3, 4), (5, 6))
 CROSS_Q = 8
 RTOL = 4e-6                       # f32 rescore / rerank sums in another order
+VIEWS_R = 5                       # dense flagship views (bench.py's view_proj)
+MLP_SIZES = (VIEWS_R * 13, 32, 16, VIEWS_R)
+PACK_RTOL = 2.0 ** -15            # one packing quantum (2^-16) + the sum order
+ORDER_ATOL = 1e-6                 # x |q| max|c|: f32 sums of 768 products in another order
+STEP_RTOL, STEP_ATOL = 2e-3, 1e-5  # card vs CPU flagship outputs (see flagship_cross_check)
+SNQC, SNQC_ATOL = 10, 0.1         # snqc sums |s - mean|^0.109: near-tied scores make it
+                                  # jump with the last bits of a score (not a fusion weight)
 CORPUS_CHUNK = 262_144
 VIEWS = ("bm25", "splade")
 DEVICE = "cuda"
@@ -317,6 +330,284 @@ def assert_close_ranking(g_s, g_i, c_s, c_i, what):
             i += 2
 
 
+def flagship_inputs(batches, dev):
+    """The flagship's inputs: per batch (queries, text features), the view
+    projections [5, D, D] (bench.py's 0.05 scale) and MLP parameters
+    [65, 32, 16, 5] (He init, as the JAX package's init_mlp_params).
+
+    Queries and projections are seeded normal draws put on grids (queries
+    in steps of 1/64 within +-4, projections in steps of 1/256 within
+    +-1/8) on which every product is a multiple of 2^-14 and every sum of
+    768 of them stays below 2^24 such steps: the f32 projection is then
+    exact in any summation order, so the card and the CPU project alike
+    and the cross-check compares retrieval, not projection rounding."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    view_proj = torch.randn((VIEWS_R, DIM, DIM), generator=gen, device=dev) * 0.05
+    view_proj = torch.round(view_proj * 256).clamp(-32, 32) / 256
+    fbatches = [(torch.round(b[4] * 64).clamp(-256, 256) / 64, b[6]) for b in batches]
+    rng = np.random.default_rng(3)
+    mlp = [{"w": (rng.standard_normal((a, b)) * np.sqrt(2.0 / a)).astype(np.float32),
+            "b": np.zeros(b, np.float32)} for a, b in zip(MLP_SIZES[:-1], MLP_SIZES[1:])]
+    return fbatches, view_proj, mlp
+
+
+def global_int8(rows_bf16):
+    """quantize_global of the bf16 rows, chunk by chunk (no f32 copy of the
+    whole corpus). -> (int8 rows [N, D], 0-d scale)."""
+    amax = rows_bf16.abs().amax().float()
+    scale = torch.where(amax > 0, amax * (1.0 / 127.0), 1.0)
+    out = torch.empty(rows_bf16.shape, dtype=torch.int8, device=rows_bf16.device)
+    for n0 in range(0, rows_bf16.shape[0], CORPUS_CHUNK):
+        x = rows_bf16[n0:n0 + CORPUS_CHUNK].float() / scale
+        out[n0:n0 + CORPUS_CHUNK] = torch.clamp(torch.round(x), -127, 127).to(torch.int8)
+    return out, scale
+
+
+def max_row_norm(rows):
+    return max(float(rows[n0:n0 + CORPUS_CHUNK].float().norm(dim=1).max())
+               for n0 in range(0, rows.shape[0], CORPUS_CHUNK))
+
+
+def f64_scores(q, corpus, m, n):
+    """float64 dot products of the pairs (q[m], corpus[n])."""
+    out = torch.empty(m.numel(), dtype=torch.float64, device=q.device)
+    for i in range(0, m.numel(), 65_536):
+        out[i:i + 65_536] = (q[m[i:i + 65_536]].double()
+                             * corpus[n[i:i + 65_536]].double()).sum(-1)
+    return out
+
+
+def check_group_close(what, q, corpus, cmax, got, ref):
+    """A bf16 kernel against its plain version on random data: the values
+    within PACK_RTOL |v| + ORDER_ATOL |q_m| max|c|; where the chosen docs
+    differ, their float64 scores within the same band (a near-tie that the
+    other summation order decided the other way). got/ref = (values, doc
+    ids) [M, G]. -> (max abs value error, entries whose docs differ)."""
+    (gv, gi), (rv, ri) = got, ref
+    band = (PACK_RTOL * torch.maximum(gv.abs(), rv.abs())
+            + ORDER_ATOL * q.float().norm(dim=1, keepdim=True) * cmax)
+    err = torch.where(gv == rv, 0.0, (gv - rv).abs())     # -inf pads agree
+    if (err > band).any():
+        raise AssertionError(f"{what}: {int((err > band).sum())} values beyond the tolerance "
+                             f"(max err {float(err.max()):.3g})")
+    diff = gi != ri
+    m = diff.nonzero()[:, 0]
+    sg = f64_scores(q, corpus, m, gi[diff].long())
+    sr = f64_scores(q, corpus, m, ri[diff].long())
+    if ((sg - sr).abs() > band[diff].double()).any():
+        raise AssertionError(f"{what}: a chosen doc differs from plain's beyond a near-tie")
+    return float(err.max()), int(diff.sum())
+
+
+def packed_parts(v):
+    """Packed group maxima -> (clean values, global doc ids)."""
+    bits = v.view(torch.int32)
+    base = torch.arange(v.shape[1], device=v.device, dtype=torch.int32) * 128
+    return (bits & ~0x7F).view(torch.float32), base + (bits & 0x7F)
+
+
+def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj):
+    """K7-K10 against their plain versions on the card over the full corpus,
+    at the shapes their paths give them: K7 the flagship's 5,120 projected
+    bf16 rows, in both corpus layouts; K8 (stride 1 and 4), K9 and K10 the
+    entry points' 1024 queries. -> per-kernel {max_abs_err, ms, plain_ms}."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk as DK
+    from qpp_fusion_rag_tpu_torch.ops.kernels import streaming_topk as ST
+
+    n = rows_bf16.shape[0]
+    cmax = max_row_norm(rows_bf16)
+    qv = DK._project(q_emb, view_proj).reshape(-1, DIM).to(torch.bfloat16).contiguous()
+    qb = q_emb.to(torch.bfloat16).contiguous()
+    res = {}
+
+    def timed(name, kernel, plain, err, reps=5, plain_reps=3, **extra):
+        res[name] = {"max_abs_err": err, "ms": median_ms(kernel, reps),
+                     "plain_ms": median_ms(plain, plain_reps), **extra}
+        log(f"  {name}: kernel {res[name]['ms']:.3f} ms, plain {res[name]['plain_ms']:.3f} ms")
+
+    got = DK.group_max_packed(qv, rows_bf16)
+    ref = DK.group_max_packed_plain(qv, rows_bf16, n)
+    err, nd = check_group_close("K7 rows", qv, rows_bf16, cmax, packed_parts(got),
+                                packed_parts(ref))
+    log(f"  K7 group_max_packed {tuple(qv.shape)} x {tuple(rows_bf16.shape)} -> "
+        f"{tuple(got.shape)}: within tolerance (max err {err:.3g}; docs differ in {nd} of "
+        f"{got.numel()} groups, all near-ties)")
+    del ref
+    t_ms = {}
+    rows_t = rows_bf16.T.contiguous()
+    got_t = DK.group_max_packed(qv, rows_t, transposed=True)
+    ref_t = DK.group_max_packed_plain(qv, rows_t, n, transposed=True)
+    err_t, nd_t = check_group_close("K7 [D, N]", qv, rows_bf16, cmax, packed_parts(got_t),
+                                    packed_parts(ref_t))
+    same = torch.equal(got_t.view(torch.int32), got.view(torch.int32))
+    del ref_t, got_t, got
+    t_ms["ms_transposed"] = median_ms(lambda: DK.group_max_packed(qv, rows_t, transposed=True), 5)
+    t_ms["plain_ms_transposed"] = median_ms(
+        lambda: DK.group_max_packed_plain(qv, rows_t, n, transposed=True), 3)
+    del rows_t
+    log(f"  K7 [D, N] layout: within tolerance (max err {err_t:.3g}, {nd_t} groups differ); "
+        f"bit-equal to the row layout: {same}; kernel {t_ms['ms_transposed']:.3f} ms, plain "
+        f"{t_ms['plain_ms_transposed']:.3f} ms")
+    timed("group_max_packed", lambda: DK.group_max_packed(qv, rows_bf16),
+          lambda: DK.group_max_packed_plain(qv, rows_bf16, n), max(err, err_t), **t_ms)
+
+    for stride in (1, 4):
+        got = DK.group_max_scores(qb, rows_bf16, stride=stride)
+        ref = DK.group_max_scores_plain(qb, rows_bf16, n, stride)
+        err, nd = check_group_close(f"K8 stride {stride}", qb, rows_bf16, cmax, got, ref)
+        log(f"  K8 group_max_scores stride {stride} {tuple(qb.shape)} -> {tuple(got[0].shape)}: "
+            f"within tolerance (max err {err:.3g}, {nd} ids differ, all near-ties)")
+        del got, ref
+    timed("group_max_scores", lambda: DK.group_max_scores(qb, rows_bf16, stride=4),
+          lambda: DK.group_max_scores_plain(qb, rows_bf16, n, 4), err,
+          ms_stride1=median_ms(lambda: DK.group_max_scores(qb, rows_bf16), 5))
+
+    rows_g, _ = global_int8(rows_bf16)
+    q_int, _ = DK.quantize_rows(q_emb)
+    got = DK.group_max_packed_int8_global(q_int, rows_g)
+    ref = DK.group_max_packed_int8_global_plain(q_int, rows_g, n)
+    if not torch.equal(got, ref):
+        raise AssertionError("K9 group_max_packed_int8_global != plain")
+    log(f"  K9 group_max_packed_int8_global {tuple(q_int.shape)} x {tuple(rows_g.shape)}: equal")
+    timed("group_max_packed_int8_global", lambda: DK.group_max_packed_int8_global(q_int, rows_g),
+          lambda: DK.group_max_packed_int8_global_plain(q_int, rows_g, n), 0.0)
+    del got, ref, rows_g
+
+    got = ST.streaming_group_max(qb, rows_bf16)
+    ref = ST.streaming_group_max_plain(qb, rows_bf16, n)
+    err, nd = check_group_close("K10", qb, rows_bf16, cmax, got, ref)
+    log(f"  K10 streaming_group_max {tuple(qb.shape)} -> {tuple(got[0].shape)}: within "
+        f"tolerance (max err {err:.3g}, {nd} ids differ, all near-ties)")
+    del got, ref
+    timed("streaming_group_max", lambda: ST.streaming_group_max(qb, rows_bf16),
+          lambda: ST.streaming_group_max_plain(qb, rows_bf16, n), err)
+    return res, cmax
+
+
+def run_flagship(name, step, corpus, batches, view_proj, smi, expect, **kw):
+    """Drive a flagship step over the batches with the launch counts set to
+    0 just before; check the outputs and that every kernel in `expect`
+    launched. -> (launch counts, per-batch ms)."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
+
+    LAUNCHES.clear()
+    outs, step_ms = [], []
+    for i, (q_emb, tf) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(step(q_emb, view_proj, corpus, tf, k=TOP_K, k_out=TOP_K, **kw))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"  {name} batch {i}: {step_ms[-1]:.1f} ms -> {BATCH / step_ms[-1] * 1e3:.0f} q/s "
+            f"({smi})")
+    launches = dict(LAUNCHES)
+    log(f"  launches during the {name} path: {launches}")
+    missing = [k for k in expect if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"kernels of the {name} path never launched: {missing}")
+    for out in outs:
+        check_step_output(out, corpus.shape[0])
+    log("  outputs: shapes, finite QPP, non-increasing fused scores, unique ids < N: ok")
+    return launches, step_ms
+
+
+def entry_call(name, kernel, fn, n_docs):
+    """One full-size call of a dense entry point, counts set to 0 just
+    before; it must launch `kernel` and return a sane [B, k] run."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
+
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, ids = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(LAUNCHES)
+    log(f"  {name}: {ms:.1f} ms; launches {launches}")
+    if launches.get(kernel, 0) < 1:
+        raise AssertionError(f"{name} never launched {kernel}")
+    if tuple(vals.shape) != (BATCH, TOP_K) or tuple(ids.shape) != (BATCH, TOP_K):
+        raise AssertionError(f"{name}: shapes {tuple(vals.shape)}, {tuple(ids.shape)}")
+    if not torch.isfinite(vals).all() or int(ids.min()) < 0 or int(ids.max()) >= n_docs:
+        raise AssertionError(f"{name}: non-finite scores or ids out of range")
+    if (vals[:, 1:] > vals[:, :-1]).any():
+        raise AssertionError(f"{name}: scores increase along a row")
+    return launches
+
+
+def assert_ranked_close(g_s, g_i, c_s, c_i, band, what):
+    """Rows sorted by score: scores within `band`; where the ids differ at a
+    position, the CPU score there lies within 2 band of another position's
+    score or of the row's last (a near-tie decided the other way)."""
+    g_s, c_s = g_s.double(), c_s.double()
+    band = torch.broadcast_to(torch.as_tensor(band, dtype=torch.float64), c_s.shape)
+    err = (g_s - c_s).abs()
+    if (err > band).any():       # -inf on both sides gives nan, which passes
+        raise AssertionError(f"{what}: scores beyond the tolerance (max err "
+                             f"{float(err[torch.isfinite(err)].max()):.3g})")
+    for r, p in (g_i != c_i).nonzero().tolist():
+        near = (c_s[r] - c_s[r, p]).abs() <= 2 * band[r, p]
+        near[p] = False
+        if not (near.any() or c_s[r, p] - c_s[r, -1] <= 2 * band[r, p]):
+            raise AssertionError(f"{what}: ids differ at row {r}, rank {p} without a near-tie")
+
+
+def flagship_cross_check(rows_bf16, rows_i8, scale, fbatch, view_proj, cmax):
+    """CROSS_Q queries of the flagship on CPU copies: the per-view runs of
+    both routes from the same projected queries (int8: equal; bf16: the
+    kernel tolerance), and the fused outputs of the whole step under frozen
+    QPP stats: qpp and fused scores within rtol STEP_RTOL, atol STEP_ATOL
+    (qpp atol STEP_RTOL; snqc atol SNQC_ATOL), ids up to near-ties. The
+    projection is exact on both devices (flagship_inputs); what differs is
+    the bf16 kernel's summation order, which the per-view min-max
+    normalisation magnifies, and the last bits of the QPP arithmetic."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk as DK
+    from qpp_fusion_rag_tpu_torch.pipeline import engine as E
+
+    q_emb, tf = fbatch
+    qv = DK._project(q_emb[:CROSS_Q], view_proj).reshape(-1, DIM)
+    c_i8, c_sc, c_bf = rows_i8.cpu(), scale.cpu(), rows_bf16.cpu()
+    g = DK.dense_topk_int8(qv, rows_i8, scale, k=TOP_K)
+    c = DK.dense_topk_int8(qv.cpu(), c_i8, c_sc, k=TOP_K)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(g, c)):
+        raise AssertionError("int8 route runs: card and CPU disagree")
+    g = DK.pallas_dense_topk(qv, rows_bf16, k=TOP_K)
+    c = DK.pallas_dense_topk(qv.cpu(), c_bf, k=TOP_K)
+    band = (PACK_RTOL * c[0].abs().double()
+            + ORDER_ATOL * qv.cpu().to(torch.bfloat16).float().norm(dim=1, keepdim=True)
+            .double() * cmax)
+    assert_ranked_close(g[0].cpu(), g[1].cpu(), c[0], c[1], band, "bf16 route runs")
+    log(f"  per-view runs of {CROSS_Q} queries x {VIEWS_R} views: int8 route equal, bf16 "
+        "route within the kernel tolerance")
+    for name, corpus, c_corpus, kw, c_kw in (
+            ("int8", rows_i8, c_i8, dict(corpus_scale=scale), dict(corpus_scale=c_sc)),
+            ("bf16", rows_bf16, c_bf, dict(use_pallas=True), dict(use_pallas=True))):
+        if name == "int8":
+            vals, ids = DK.pallas_multi_view_topk_int8(q_emb, view_proj, corpus, scale, k=TOP_K)
+        else:
+            vals, ids = DK.pallas_multi_view_topk(q_emb, view_proj, corpus, k=TOP_K)
+        stats = E.Q.qpp_calibration_stats(E.qpp_from_runs(vals, ids, tf, normalize=False))
+        g = E.fused_retrieval_step(q_emb, view_proj, corpus, tf, k=TOP_K, k_out=TOP_K,
+                                   qpp_norm_stats=stats, **kw)
+        c = E.fused_retrieval_step(q_emb[:CROSS_Q].cpu(), view_proj.cpu(), c_corpus,
+                                   tf[:CROSS_Q].cpu(), k=TOP_K, k_out=TOP_K,
+                                   qpp_norm_stats=stats.cpu(), **c_kw)
+        keep = torch.arange(13) != SNQC
+        torch.testing.assert_close(g[2][:, :CROSS_Q, keep].cpu(), c[2][..., keep], rtol=STEP_RTOL,
+                                   atol=STEP_RTOL, msg=lambda m: f"{name} step qpp: {m}")
+        torch.testing.assert_close(g[2][:, :CROSS_Q, SNQC].cpu(), c[2][..., SNQC], rtol=0,
+                                   atol=SNQC_ATOL, msg=lambda m: f"{name} step snqc: {m}")
+        band = STEP_ATOL + STEP_RTOL * c[1].abs().double()
+        assert_ranked_close(g[1][:CROSS_Q].cpu(), g[0][:CROSS_Q].cpu(), c[1], c[0], band,
+                            f"{name} step fused output")
+        n_same = int((g[0][:CROSS_Q].cpu() == c[0]).sum())
+        log(f"  {name} step under frozen QPP stats: qpp and fused scores within rtol "
+            f"{STEP_RTOL} (snqc atol {SNQC_ATOL}; max snqc diff "
+            f"{float((g[2][:, :CROSS_Q, SNQC].cpu() - c[2][..., SNQC]).abs().max()):.3g}); "
+            f"{n_same} of {c[0].numel()} fused ids equal, the rest near-ties")
+    del c_i8, c_bf
+
+
 def main() -> None:
     if not (ROOT / "qpp_fusion_rag_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: no qpp_fusion_rag_tpu_torch package beside "
@@ -331,6 +622,7 @@ def main() -> None:
     from qpp_fusion_rag_tpu_torch.pipeline.interop import indexes_from_numpy
 
     t_all = time.perf_counter()
+    phase_s = {}
     dev = torch.device(DEVICE)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -444,27 +736,96 @@ def main() -> None:
         f"dense view within rtol {RTOL} (ids up to near-tie swaps)")
     log("  cross-check ok")
 
+    phase_s["[1-8] ensemble paths and cross-check"] = time.perf_counter() - t_all
+
+    from qpp_fusion_rag_tpu_torch.ops.kernels import streaming_topk
+    from qpp_fusion_rag_tpu_torch.pipeline.engine import (
+        fused_retrieval_step,
+        learned_fused_retrieval_step,
+    )
+    from qpp_fusion_rag_tpu_torch.pipeline.interop import mlp_params_from_numpy
+
+    t0 = time.perf_counter()
+    rows_bf16 = idx_rs.rerank_rows
+    fbatches, view_proj, mlp = flagship_inputs(batches, dev)
+    log(f"[9] dense kernels K7-K10 vs plain on the card over the full bf16 corpus "
+        f"{tuple(rows_bf16.shape)} (flagship: {VIEWS_R} views x {BATCH} queries)")
+    dres, cmax = dense_kernels_vs_plain(rows_bf16, fbatches[0][0], view_proj)
+    res.update(dres)
+    phase_s["[9] dense kernels vs plain"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log(f"[10] dense flagship: fused_retrieval_step, {VIEWS_R} views, {len(batches)} batches "
+        f"of {BATCH} queries, {N_DOCS} docs, on each route")
+    flag_launches, flag_ms = {}, {}
+    for name, corpus, kernel, kw in (
+            ("flagship_int8", idx.corpus_rows, "group_max_packed_int8",
+             dict(corpus_scale=idx.d_scale)),
+            ("flagship_bf16", rows_bf16, "group_max_packed", dict(use_pallas=True))):
+        flag_launches[name], flag_ms[name] = run_flagship(
+            name, fused_retrieval_step, corpus, fbatches, view_proj, smi, (kernel,), **kw)
+    params = mlp_params_from_numpy(mlp, dev)
+    flag_launches["flagship_learned"], flag_ms["flagship_learned"] = run_flagship(
+        "flagship_learned", lambda *a, **kw: learned_fused_retrieval_step(params, *a, **kw),
+        rows_bf16, fbatches[:1], view_proj, smi, ("group_max_packed",), use_pallas=True)
+    phase_s["[10] flagship paths"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log(f"[11] dense entry points, one full-size call each ({BATCH} queries)")
+    rows_g, scale_g = global_int8(rows_bf16)
+    entry = {
+        "dense_topk_stride4": entry_call(
+            "pallas_dense_topk(packed=False, stride=4)", "group_max_scores",
+            lambda: dense_topk.pallas_dense_topk(q_emb, rows_bf16, k=TOP_K, packed=False,
+                                                 stride=4), N_DOCS),
+        "int8_global": entry_call(
+            "pallas_dense_topk_int8_global", "group_max_packed_int8_global",
+            lambda: dense_topk.pallas_dense_topk_int8_global(q_emb, rows_g, scale_g, k=TOP_K),
+            N_DOCS),
+        "streaming": entry_call(
+            "streaming_dense_topk", "streaming_group_max",
+            lambda: streaming_topk.streaming_dense_topk(q_emb, rows_bf16, k=TOP_K), N_DOCS),
+    }
+    del rows_g
+    phase_s["[11] entry points"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log(f"[12] flagship cross-check of {CROSS_Q} queries on CPU copies")
+    flagship_cross_check(rows_bf16, idx.corpus_rows, idx.d_scale, fbatches[0], view_proj, cmax)
+    log("  cross-check ok")
+    phase_s["[12] flagship cross-check"] = time.perf_counter() - t0
+
     src = "qpp_fusion_rag_tpu_torch/csrc/"
     tpu = "qpp_fusion_rag_tpu/ops/pallas/"
-    meta = {"group_max_packed_int8": (src + "dense_topk_int8.cu", tpu + "dense_topk.py:184"),
-            "bitonic_segsum_rows": (src + "bitonic_segsum.cu", tpu + "bitonic.py:275"),
-            "gather_windows": (src + "window_gather.cu", tpu + "window_gather.py:101"),
-            "bitonic_topp_rows": (src + "bitonic_topp.cu", tpu + "bitonic.py:166"),
-            "bitonic_sort_rows": (src + "bitonic_sort.cu", tpu + "bitonic.py:93"),
-            "rescore_match": (src + "rescore_match.cu", tpu + "row_gather.py:122")}
-    paths = {"q8": q8_launches, "q8r": q8r_launches, "q8r_fallback": fb_launches}
+    # kernel -> (source, TPU kernel it replaces, its main path)
+    meta = {"group_max_packed_int8": (src + "dense_topk_int8.cu", tpu + "dense_topk.py:184", "q8r"),
+            "bitonic_segsum_rows": (src + "bitonic_segsum.cu", tpu + "bitonic.py:275", "q8r"),
+            "gather_windows": (src + "window_gather.cu", tpu + "window_gather.py:101", "q8r"),
+            "bitonic_topp_rows": (src + "bitonic_topp.cu", tpu + "bitonic.py:166", "q8r"),
+            "bitonic_sort_rows": (src + "bitonic_sort.cu", tpu + "bitonic.py:93", "q8r_fallback"),
+            "rescore_match": (src + "rescore_match.cu", tpu + "row_gather.py:122", "q8r"),
+            "group_max_packed": (src + "group_max_packed.cu", tpu + "dense_topk.py:378",
+                                 "flagship_bf16"),
+            "group_max_scores": (src + "group_max_scores.cu", tpu + "dense_topk.py:423",
+                                 "dense_topk_stride4"),
+            "group_max_packed_int8_global": (src + "group_max_int8_global.cu",
+                                             tpu + "dense_topk.py:258", "int8_global"),
+            "streaming_group_max": (src + "streaming_group_max.cu", tpu + "streaming_topk.py:91",
+                                    "streaming")}
+    paths = {"q8": q8_launches, "q8r": q8r_launches, "q8r_fallback": fb_launches,
+             **flag_launches, **entry}
     kernels = []
-    for name, (source, replaces) in meta.items():
-        main_path = "q8r_fallback" if name == "bitonic_sort_rows" else "q8r"
+    for name, (source, replaces, main_path) in meta.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": paths[main_path].get(name, 0),
                         "path": main_path,
                         "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
-                        "max_abs_err": res[name]["max_abs_err"], "ms": res[name]["ms"],
-                        "plain_ms": res[name]["plain_ms"]})
+                        **res[name]})
+    for name, sec in phase_s.items():
+        log(f"  {name}: {sec:.1f} s")
     log(f"  total {time.perf_counter() - t_all:.1f} s; q8 step ms {q8_ms}; q8r step ms "
-        f"{q8r_ms}; fallback call {fb_ms:.1f} ms; host build {host_s:.1f} s; kernel "
-        f"build {build_s:.1f} s; {smi}")
+        f"{q8r_ms}; fallback call {fb_ms:.1f} ms; flagship step ms {flag_ms}; host build "
+        f"{host_s:.1f} s; kernel build {build_s:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}),

@@ -50,6 +50,14 @@ SIGNATURES = {
     "qfr_rescore_match": (_P, _LL, _I, _P, _LL, _I, _P, _P, _I, _I, _I, _P, _P),
     # q, corpus_rows, d_scale, M, N, D, n_real, out, stream
     "qfr_group_max_packed_int8": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # q, corpus, M, N, D, n_real, transposed, out, stream
+    "qfr_group_max_packed": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # q, corpus, M, N, D, n_real, n_out, g, stride, vals, ids, stream
+    "qfr_group_max_scores": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # q, corpus_rows, M, N, D, n_real, out, stream
+    "qfr_group_max_int8_global": (_P, _P, _I, _I, _I, _I, _P, _P),
+    # q, corpus, M, N, D, n_real, n_groups, vals, ids, stream
+    "qfr_streaming_group_max": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

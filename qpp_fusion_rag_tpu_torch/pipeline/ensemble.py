@@ -13,9 +13,9 @@
 then the 13 QPP statistics per view and QPP-weighted fusion.
 
 Counterpart of qpp_fusion_rag_tpu/pipeline/ensemble.py for sparse_mode
-"q8" and "q8r"; the certified ("q8c"), "sort" and window-rescore modes and
-the learned MLP weights raise NotImplementedError until ported (ROADMAP
-Queue 1). Everything runs on the device the index tensors live on; there
+"q8" and "q8r", with QPP-column or learned MLP fusion weights; the
+certified ("q8c"), "sort" and window-rescore modes raise
+NotImplementedError until ported (ROADMAP Queue 1). Everything runs on the device the index tensors live on; there
 is no jit: PyTorch runs eagerly.
 """
 
@@ -33,7 +33,11 @@ from qpp_fusion_rag_tpu_torch.ops.sparse import (
     sparse_score_topk_q8_rescored,
     validate_presorted_cap,
 )
-from qpp_fusion_rag_tpu_torch.pipeline.engine import qpp_from_runs, weight_and_fuse
+from qpp_fusion_rag_tpu_torch.pipeline.engine import (
+    learned_weights,
+    qpp_from_runs,
+    weight_and_fuse,
+)
 
 _ROADMAP = "not ported yet (ROADMAP Queue 1)"
 
@@ -167,12 +171,11 @@ def fuse_tail(
     mlp_params=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-view min-max (the .norm.res contract) + fusion weighted by one
-    QPP column."""
-    if mlp_params is not None:
-        raise NotImplementedError(f"learned MLP fusion weights are {_ROADMAP}")
+    QPP column, or by a learned MLP's softmax over the [B, R*13] features
+    (mlp_params: pipeline.interop.mlp_params_from_numpy)."""
     norm = F._row_minmax(vals, ids >= 0, fill=float("-inf"))
-    return weight_and_fuse(ids, norm, qpp[..., qpp_index], method=method,
-                           k_out=k_out)
+    weights = qpp[..., qpp_index] if mlp_params is None else learned_weights(mlp_params, qpp)
+    return weight_and_fuse(ids, norm, weights, method=method, k_out=k_out)
 
 
 def resolve_doc_imp_bits(idx_bits, kw_bits, default: int = 8) -> int:

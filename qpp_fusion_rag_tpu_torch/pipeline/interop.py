@@ -1,4 +1,5 @@
-"""Carry a built ensemble index over from the JAX package's layout.
+"""Carry built indexes, flagship corpora and MLP parameters over from the
+JAX package's layouts.
 
 The JAX package's ``EnsembleIndexes`` holds the int8 dense corpus as
 ``corpus_int`` [D, N] (its TPU kernel layout) and ``corpus_rows`` [N, D]
@@ -105,3 +106,34 @@ def indexes_from_numpy(d: Mapping[str, object], device,
         doc_imp_bits=doc_imp_bits,
         **extra,
     )
+
+
+def flagship_corpus_from_numpy(corpus, device, corpus_scale=None):
+    """A JAX flagship corpus -> (corpus tensor, scales or None) on `device`
+    for pipeline.engine.
+
+    With ``corpus_scale`` (the int8 route): JAX's int8 ``[Dv, N]`` and
+    ``[1, N]`` scales become the port's one int8 layout, rows ``[N, Dv]``
+    (transposed once) and flat scales ``[N]``. Without it, a bf16 or f32
+    corpus (``[N, Dv]``, or ``[Dv, N]`` for corpus_transposed) is carried
+    as it is, bf16 through its uint16 bits."""
+    c = _as_tensor(corpus)
+    if corpus_scale is None:
+        if c.dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"a float flagship corpus must be bfloat16 or float32, got {c.dtype}")
+        return c.to(device).contiguous(), None
+    scale = _as_tensor(corpus_scale).reshape(-1)
+    N = scale.shape[0]
+    if c.dtype != torch.int8 or c.dim() != 2 or c.shape[1] != N:
+        raise ValueError(f"the int8 flagship corpus must be int8 [Dv, {N}] beside "
+                         f"[1, {N}] scales, got {c.dtype} {tuple(c.shape)}")
+    return (c.to(device).T.contiguous(),
+            scale.to(device=device, dtype=torch.float32).contiguous())
+
+
+def mlp_params_from_numpy(params, device):
+    """A JAX MLP parameter list [{"w": [in, out], "b": [out]}, ...] (numpy or
+    jax arrays) -> the same list of f32 tensors on `device` for
+    models.mlp.mlp_apply."""
+    return [{"w": _tensor(layer["w"], device, torch.float32),
+             "b": _tensor(layer["b"], device, torch.float32)} for layer in params]

@@ -1,5 +1,14 @@
-"""The port's CUDA kernels (K1-K6) against their plain PyTorch versions on
-an NVIDIA GPU, at small shapes, plus the launch counters.
+"""The port's CUDA kernels (K1-K10) against their plain PyTorch versions on
+an NVIDIA GPU, at small shapes, plus the launch counters and the wrappers'
+refusals.
+
+The dense bf16 kernels (K7, K8, K10) are held bit-equal to their plain
+versions on integer-valued inputs (every f32 partial sum is then exact in
+any order), ties, ragged N and zero scores included; on random inputs only
+the summation order differs, and the tolerance is the one of
+tests/test_torch_dense.py (2^-15 relative + 1e-6 of the |q|.|c| bound; a
+lane or argmax may differ only between docs whose float64 scores lie
+within it). K9 is integer arithmetic and is compared bit for bit.
 
 These need the card: each test skips when torch.cuda.is_available() is
 False. The file imports neither jax nor the JAX package, so it runs on a
@@ -18,6 +27,7 @@ from qpp_fusion_rag_tpu_torch.ops.kernels import (
     bitonic,
     dense_topk,
     row_gather,
+    streaming_topk,
     window_gather,
 )
 
@@ -230,3 +240,174 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="starts on"):
         window_gather.gather_windows(torch.zeros(64, dtype=torch.int32, device=cuda),
                                      torch.zeros(2, dtype=torch.int32), 8)
+
+
+# ------------------------------------------------------ K7, K8, K9, K10 ----
+
+def _int_bf16(shape, seed, lo=-4, hi=4):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(lo, hi + 1, shape, generator=g).to(torch.bfloat16)
+
+
+def _rand_bf16(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(torch.bfloat16)
+
+
+def _tol(q, c):
+    """float64 scores [M, N] and the per-entry tolerance (module docstring)."""
+    qd, cd = q.double(), c.double()
+    return qd @ cd.T, 2.0 ** -15 * (qd @ cd.T).abs() + 1e-6 * (qd.abs() @ cd.abs().T)
+
+
+def _bits(x):
+    return x.cpu().view(torch.int32)
+
+
+@pytest.mark.parametrize("M,N,D,n_real,transposed", [
+    (100, 5000, 64, None, False), (256, 8192, 768, None, False), (130, 4096, 128, 3000, False),
+    (3, 77, 32, None, False), (100, 5000, 64, None, True), (256, 8192, 768, None, True),
+    (130, 4000, 128, 3001, True), (5, 96, 16, None, True)])
+def test_k7_matches_plain_bits(cuda, M, N, D, n_real, transposed):
+    q = _int_bf16((M, D), M + N)
+    c = _int_bf16((N, D), N + D)
+    q[M // 2] = 0                             # zero scores: denormals once packed
+    c[7] = 0
+    c_in = c.T.contiguous() if transposed else c
+    out = _counted("group_max_packed", lambda: dense_topk.group_max_packed(
+        q.to(cuda), c_in.to(cuda), n_real=n_real, transposed=transposed))
+    ref = dense_topk.group_max_packed_plain(q, c_in, N if n_real is None else n_real,
+                                            transposed)
+    assert torch.equal(_bits(out), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_k7_random_within_tolerance(cuda, transposed):
+    q, c = _rand_bf16((192, 768), 1), _rand_bf16((4096, 768), 2)
+    c_in = c.T.contiguous() if transposed else c
+    out = _bits(dense_topk.group_max_packed(q.to(cuda), c_in.to(cuda), transposed=transposed))
+    ref = dense_topk.group_max_packed_plain(q.to(cuda), c_in.to(cuda), 4096,
+                                            transposed).cpu().view(torch.int32)
+    s64, tol = _tol(q, c)
+    rows = torch.arange(192)[:, None]
+    grp = torch.arange(out.shape[1])[None, :]
+    o_doc, r_doc = grp * 128 + (out & 0x7F), grp * 128 + (ref & 0x7F)
+    t = torch.maximum(tol[rows, o_doc], tol[rows, r_doc])
+    clean = lambda b: (b & ~0x7F).view(torch.float32).double()
+    assert ((clean(out) - clean(ref)).abs() <= t).all()
+    assert ((s64[rows, o_doc] - s64[rows, r_doc]).abs() <= t).all()
+
+
+@pytest.mark.parametrize("M,N,D,stride,tn,n_real", [
+    (100, 5000, 64, 1, 2048, None), (256, 8192, 768, 4, 2048, None),
+    (130, 4000, 128, 4, 1024, 3001), (3, 77, 32, 1, 256, None), (64, 3000, 64, 2, 512, None)])
+def test_k8_matches_plain_bits(cuda, M, N, D, stride, tn, n_real):
+    q = _int_bf16((M, D), M + N, -2, 2)       # narrow: ties inside and across blocks
+    c = _int_bf16((N, D), N + D, -2, 2)
+    vals, ids = _counted("group_max_scores", lambda: dense_topk.group_max_scores(
+        q.to(cuda), c.to(cuda), n_real=n_real, stride=stride, tn=tn))
+    r_vals, r_ids = dense_topk.group_max_scores_plain(q, c, N if n_real is None else n_real,
+                                                      stride, tn)
+    assert torch.equal(_bits(vals), r_vals.view(torch.int32))
+    assert torch.equal(ids.cpu(), r_ids)
+
+
+def test_k8_random_within_tolerance(cuda):
+    q, c = _rand_bf16((192, 768), 3), _rand_bf16((4096, 768), 4)
+    vals, ids = dense_topk.group_max_scores(q.to(cuda), c.to(cuda), stride=4)
+    r_vals, r_ids = dense_topk.group_max_scores_plain(q.to(cuda), c.to(cuda), 4096, 4, 2048)
+    s64, tol = _tol(q, c)
+    rows = torch.arange(192)[:, None]
+    ids, r_ids = ids.cpu().long(), r_ids.cpu().long()
+    t = torch.maximum(tol[rows, ids], tol[rows, r_ids])
+    assert ((vals.cpu().double() - r_vals.cpu().double()).abs() <= t).all()
+    assert ((s64[rows, ids] - s64[rows, r_ids]).abs() <= t).all()
+
+
+@pytest.mark.parametrize("M,N,D,n_real", [(100, 5000, 64, None), (256, 8192, 768, None),
+                                           (130, 4000, 128, 2999), (1, 77, 16, None)])
+def test_k9_matches_plain_bits(cuda, M, N, D, n_real):
+    g = torch.Generator().manual_seed(M + N + D)
+    q = torch.randint(-127, 128, (M, D), generator=g, dtype=torch.int8)
+    c = torch.randint(-127, 128, (N, D), generator=g, dtype=torch.int8)
+    c[5] = c[6]                               # tied scores in one group
+    out = _counted("group_max_packed_int8_global", lambda: (
+        dense_topk.group_max_packed_int8_global(q.to(cuda), c.to(cuda), n_real=n_real)))
+    ref = dense_topk.group_max_packed_int8_global_plain(q, c, N if n_real is None else n_real)
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("M,N,D,n_real", [(100, 5000, 64, None), (300, 20_000, 768, None),
+                                           (130, 4000, 128, 3001), (3, 77, 32, None)])
+def test_k10_matches_plain_bits(cuda, M, N, D, n_real):
+    q = _int_bf16((M, D), M + N, -2, 2)
+    c = _int_bf16((N, D), N + D, -2, 2)
+    vals, ids = _counted("streaming_group_max", lambda: streaming_topk.streaming_group_max(
+        q.to(cuda), c.to(cuda), n_real=n_real))
+    r_vals, r_ids = streaming_topk.streaming_group_max_plain(q, c, N if n_real is None else n_real)
+    assert vals.shape[1] == -(-N // streaming_topk.SUPER) * streaming_topk.SUPER // 128
+    assert torch.equal(_bits(vals), r_vals.view(torch.int32))
+    assert torch.equal(ids.cpu(), r_ids)
+
+
+def test_k10_random_within_tolerance(cuda):
+    q, c = _rand_bf16((300, 768), 5), _rand_bf16((16384, 768), 6)
+    vals, ids = streaming_topk.streaming_group_max(q.to(cuda), c.to(cuda))
+    r_vals, r_ids = streaming_topk.streaming_group_max_plain(q.to(cuda), c.to(cuda), 16384)
+    s64, tol = _tol(q, c)
+    rows = torch.arange(300)[:, None]
+    ids, r_ids = ids.cpu().long(), r_ids.cpu().long()
+    t = torch.maximum(tol[rows, ids], tol[rows, r_ids])
+    assert ((vals.cpu().double() - r_vals.cpu().double()).abs() <= t).all()
+    assert ((s64[rows, ids] - s64[rows, r_ids]).abs() <= t).all()
+
+
+def test_dense_topk_wrappers_match_cpu(cuda):
+    q = _int_bf16((40, 256), 7).float()
+    c = _int_bf16((20_000, 256), 8)
+    ci = torch.randint(-127, 128, (20_000, 256), generator=torch.Generator().manual_seed(9),
+                       dtype=torch.int8)
+    calls = [
+        lambda x, y: dense_topk.pallas_dense_topk(x, y, k=50),
+        lambda x, y: dense_topk.pallas_dense_topk(x, y.T.contiguous(), k=50, transposed=True),
+        lambda x, y: dense_topk.pallas_dense_topk(x, y, k=50, packed=False, stride=4),
+        lambda x, y: streaming_topk.streaming_dense_topk(x, y, k=50, row_block=16),
+    ]
+    for call in calls:
+        for a, b in zip(call(q.to(cuda), c.to(cuda)), call(q, c)):
+            assert torch.equal(a.cpu(), b)
+    scale = torch.tensor(0.01)
+    for a, b in zip(dense_topk.pallas_dense_topk_int8_global(q.to(cuda), ci.to(cuda), scale),
+                    dense_topk.pallas_dense_topk_int8_global(q, ci, scale)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_dense_wrappers_refuse_bad_inputs(cuda):
+    q = torch.zeros((4, 12), dtype=torch.bfloat16, device=cuda)      # 24-byte rows
+    c = torch.zeros((256, 12), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        dense_topk.group_max_packed(q, c)
+    with pytest.raises(ValueError, match="16-byte"):
+        dense_topk.group_max_scores(q, c)
+    with pytest.raises(ValueError, match="16-byte"):
+        streaming_topk.streaming_group_max(q, c)
+    q16 = torch.zeros((4, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="N % 8"):
+        dense_topk.group_max_packed(q16, torch.zeros((16, 100), dtype=torch.bfloat16,
+                                                     device=cuda), transposed=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        dense_topk.group_max_packed(q16.float(), torch.zeros((64, 16), device=cuda))
+    with pytest.raises(ValueError, match="share a device"):
+        dense_topk.group_max_scores(q16, torch.zeros((64, 16), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="D <= 1040"):
+        dense_topk.group_max_packed_int8_global(
+            torch.zeros((2, 1056), dtype=torch.int8, device=cuda),
+            torch.zeros((128, 1056), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="16-byte"):
+        dense_topk.group_max_packed_int8_global(
+            torch.zeros((2, 24), dtype=torch.int8, device=cuda),
+            torch.zeros((128, 24), dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="D <= 832"):
+        streaming_topk.streaming_group_max(
+            torch.zeros((2, 848), dtype=torch.bfloat16, device=cuda),
+            torch.zeros((128, 848), dtype=torch.bfloat16, device=cuda))

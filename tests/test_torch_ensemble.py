@@ -33,7 +33,7 @@ from qpp_fusion_rag_tpu.ops.sparse import (
 from qpp_fusion_rag_tpu.pipeline import ensemble as JE
 from qpp_fusion_rag_tpu.pipeline.engine import qpp_from_runs
 from qpp_fusion_rag_tpu_torch.pipeline import ensemble as TE
-from qpp_fusion_rag_tpu_torch.pipeline.interop import indexes_from_numpy
+from qpp_fusion_rag_tpu_torch.pipeline.interop import indexes_from_numpy, mlp_params_from_numpy
 
 REPO = Path(__file__).resolve().parents[1]
 N, D, B, CAP, K = 16_384, 64, 16, 64, 32
@@ -133,6 +133,29 @@ def test_ensemble_step_matches_jax(built):
     _assert_ids_equal_up_to_near_ties(to[0], to[1], jo[0])
 
 
+def test_ensemble_step_with_mlp_weights_matches_jax(built):
+    """Learned fusion weights: softmax(mlp_apply(params, [B, 5*13] QPP
+    features)), the same numpy parameters carried over to both packages."""
+    rng = np.random.default_rng(4)
+    sizes = [5 * 13, 32, 16, 5]
+    params = [{"w": (rng.standard_normal((a, b)) * 0.3).astype(np.float32),
+               "b": (rng.standard_normal(b) * 0.1).astype(np.float32)}
+              for a, b in zip(sizes[:-1], sizes[1:])]
+    jparams = [{k: jnp.asarray(v) for k, v in layer.items()} for layer in params]
+    jo = [np.asarray(x) for x in JE.ensemble_retrieval_step(
+        built["jidx"], *built["inputs"], mlp_params=jparams, **STEP_KW)]
+    to = [x.numpy() for x in TE.ensemble_retrieval_step(
+        built["tidx"], *built["inputs"], mlp_params=mlp_params_from_numpy(params, "cpu"),
+        **STEP_KW)]
+    assert [x.shape for x in to] == [x.shape for x in jo] == [(B, K), (B, K), (5, B, 13)]
+    np.testing.assert_allclose(to[2], jo[2], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(to[1], jo[1], rtol=1e-5)
+    _assert_ids_equal_up_to_near_ties(to[0], to[1], jo[0])
+    qpp_w = [x.numpy() for x in TE.ensemble_retrieval_step(built["tidx"], *built["inputs"],
+                                                           **STEP_KW)]
+    assert not np.allclose(qpp_w[1], to[1])      # the weights did change the fusion
+
+
 def test_kernel_views_match_jax_bit_for_bit(built):
     """The three kernel-bearing views of the step: BM25 and SPLADE q8 (K3 +
     K2) and the int8 dense view (K1)."""
@@ -175,7 +198,7 @@ def test_rerank_candidates_matches_jax(built):
 def test_unported_modes_raise_not_implemented(built):
     tidx = built["tidx"]
     for kw in (dict(sparse_mode="q8c"), dict(sparse_mode="sort"),
-               dict(sparse_candidates=4), dict(mlp_params={"w": 1})):
+               dict(sparse_candidates=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TE.ensemble_retrieval_step(tidx, *built["inputs"], k=K, k_out=K, p_cap=CAP,
                                        sparse_presorted=True, **kw)
@@ -211,7 +234,9 @@ def test_interop_layouts(built):
 def test_port_imports_without_jax_yaml_or_reference(tmp_path):
     """A subprocess in which jax, yaml and the JAX package cannot be imported
     builds a tiny index with the port's own host code (postings and doc
-    vectors) and runs the slice in q8 and in q8r with a dense pool."""
+    vectors) and runs the slice in q8 and in q8r with a dense pool, then the
+    dense flagship step on its three routes (learned weights on one), the
+    kernel entry points of the dense family and DenseIndex's engines."""
     script = tmp_path / "isolated.py"
     script.write_text(f"""
 import sys
@@ -224,7 +249,7 @@ from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import quantize_rows
 from qpp_fusion_rag_tpu_torch.ops.sparse import (
     doc_vector_imp_bits, pack_doc_vectors, pack_postings_presorted)
 from qpp_fusion_rag_tpu_torch.pipeline.ensemble import ensemble_retrieval_step
-from qpp_fusion_rag_tpu_torch.pipeline.interop import indexes_from_numpy
+from qpp_fusion_rag_tpu_torch.pipeline.interop import indexes_from_numpy, mlp_params_from_numpy
 n, d, b, cap = 2048, 32, 4, 16
 bo, bd, bw, _ = zipf_bm25_csr(n, vocab_size=400, avg_doc_len=20.0, seed=0)
 so, sd, sw, _ = zipf_bm25_csr(n, vocab_size=300, avg_doc_len=25.0, seed=7)
@@ -257,6 +282,40 @@ for index, kw in ((idx, dict()),
                                                **kw)
     assert ids.shape == (b, 16) and qpp.shape == (5, b, 13)
     assert torch.isfinite(qpp).all() and (ids[:, 0] >= 0).all()
+from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import (
+    pallas_dense_topk, pallas_dense_topk_int8_global, quantize_global)
+from qpp_fusion_rag_tpu_torch.ops.kernels.streaming_topk import streaming_dense_topk
+from qpp_fusion_rag_tpu_torch.pipeline.engine import (
+    fused_retrieval_step, learned_fused_retrieval_step)
+from qpp_fusion_rag_tpu_torch.pipeline.interop import (
+    flagship_corpus_from_numpy, mlp_params_from_numpy)
+from qpp_fusion_rag_tpu_torch.retrievers.dense import DenseIndex, DenseRetriever
+vp = torch.randn(5, d, d, generator=g) * 0.1
+tf5 = tf
+bf = x.to(torch.bfloat16)
+rng = np.random.default_rng(0)
+mlp = mlp_params_from_numpy([{{"w": rng.standard_normal((65, 5)).astype(np.float32),
+                              "b": np.zeros(5, np.float32)}}], "cpu")
+c8, s8 = flagship_corpus_from_numpy(rows.T.numpy(), "cpu", scale.reshape(1, -1).numpy())
+for out in (fused_retrieval_step(q, vp, bf, tf5, k=16, k_out=16, chunk=512),
+            fused_retrieval_step(q, vp, bf, tf5, k=16, k_out=16, use_pallas=True),
+            fused_retrieval_step(q, vp, bf.T.contiguous(), tf5, k=16, k_out=16,
+                                 use_pallas=True, corpus_transposed=True),
+            fused_retrieval_step(q, vp, c8, tf5, k=16, k_out=16, corpus_scale=s8),
+            learned_fused_retrieval_step(mlp, q, vp, bf, tf5, k=16, k_out=16,
+                                         use_pallas=True)):
+    assert out[0].shape == (b, 16) and out[2].shape == (5, b, 13)
+    assert torch.isfinite(out[2]).all() and (out[0][:, 0] >= 0).all()
+for packed in (True, False):
+    assert pallas_dense_topk(q, bf, k=8, packed=packed)[1].shape == (b, 8)
+gi, gs = quantize_global(x)
+assert pallas_dense_topk_int8_global(q, gi, gs, k=8)[1].shape == (b, 8)
+assert streaming_dense_topk(q, bf, k=8)[1].shape == (b, 8)
+index = DenseIndex(x.numpy(), [f"d{{i}}" for i in range(n)], device="cpu")
+for engine in ("stream", "int8", "int8r"):
+    res = DenseRetriever(index, encoder=lambda t: q[:len(t)].numpy(), engine=engine,
+                         rescore_pool=32).retrieve_batch({{"a": "x", "b": "y"}}, top_k=5)
+    assert [len(r.results) for r in res.values()] == [5, 5]
 assert not any(m == "jax" or m.startswith(("jax.", "yaml", "qpp_fusion_rag_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("isolated ok")
