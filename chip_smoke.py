@@ -12,19 +12,24 @@ on the host (2,621,440 docs, BM25 and SPLADE presorted postings at p_cap
 768-wide dense corpus on the card from a seed (int8 rows for the kernels,
 bf16 rows of the same draws for the rank-safe rerank and the dense
 flagship), holds each kernel against its plain PyTorch version at the main
-paths' shapes, then drives the ensemble step over three batches of 1024
-queries in q8 mode and three in rank-safe q8r mode (256 sparse candidates,
-a 128-doc dense pool), and one q8r BM25 call at 8192 candidates (the pool's
-full-sort branch). The dense flagship follows (R = 5 views, 5,120 scoring
-rows per batch): K7-K10 against their plain versions on the full corpus
-(K7 in both layouts), fused_retrieval_step over three batches on the int8
-route (K1) and three on the bf16 route (K7), one learned-fusion call, and
-one full-size call of each dense entry point (K8 at stride 4, K9, K10).
-Each path checks that every kernel it runs launched, with the counts set to
-0 just before it. Last, the kernel-bearing views and the flagship's runs
-and fused outputs are cross-checked against the plain versions on CPU
-copies. Every phase raises on failure and prints its seconds. The line
-before the last is a JSON summary of the ten kernels; the last line is
+paths' shapes (with its bound from those shapes and, where one PyTorch call
+computes the same function, that call's time), then drives the ensemble
+step for 12 steps (4 passes over three batches of 1024 queries) in q8 mode
+and 12 in rank-safe q8r mode (256 sparse candidates, a 128-doc dense pool),
+one q8r BM25 call at 8192 candidates (the pool's full-sort branch), and one
+q8 and one q8r SPLADE call of 32-term queries (rows of 65,536 keys: K2 and
+K4 on two-CTA clusters). The dense flagship follows (R = 5 views, 5,120
+scoring rows per batch): K7-K10 against their plain versions on the full
+corpus (K7 in both layouts; K1 again at the 5,120 rows), fused_retrieval_step for 12 steps on the int8
+route (K1) and 12 on the bf16 route (K7), learned-fusion calls, one
+full-size call of each dense entry point (K8 at stride 4, K9, K10), and a
+torch.profiler window of 3 steps per main path (device busy share, top
+kernels). Each path checks that every kernel it runs launched, with the
+counts set to 0 just before it. Last, the kernel-bearing views and the
+flagship's runs and fused outputs are cross-checked against the plain
+versions on CPU copies. Every phase raises on failure and prints its
+seconds. The line before the last is a JSON summary of the ten kernels;
+the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -56,6 +61,8 @@ DOC_CAP = 128
 Q8R_CANDIDATES, DENSE_POOL = 256, 128
 FALLBACK_CANDIDATES = 8192        # bs 16384: 2*bs > M = 16384 for BM25 -> K5
 QUERY_SEEDS = ((1, 2), (3, 4), (5, 6))
+ROUNDS = 4                        # passes over the batches: 12 steps per path, 1 warm-up
+PROFILE_STEPS = 3
 CROSS_Q = 8
 RTOL = 4e-6                       # f32 rescore / rerank sums in another order
 VIEWS_R = 5                       # dense flagship views (bench.py's view_proj)
@@ -68,6 +75,9 @@ SNQC, SNQC_ATOL = 10, 0.1         # snqc sums |s - mean|^0.109: near-tied scores
 CORPUS_CHUNK = 262_144
 VIEWS = ("bm25", "splade")
 DEVICE = "cuda"
+LONG_TQ = 32                      # a SPLADE query of 32 terms: M = 32 x 2048 = 65,536 keys
+HBM_BPS = 3.35e12                 # H100 SXM device memory, bytes/s
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}   # H100 SXM dense tensor-core peaks
 
 
 def log(msg: str) -> None:
@@ -88,6 +98,14 @@ def median_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(statistics.median(times))
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """The least time the card could take: the larger of the bytes the
+    function must move over the HBM rate and its operations over the peak
+    rate of their type. -> (ms, "bytes" or "operations")."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def host_build(n_docs: int):
@@ -164,19 +182,29 @@ def view_args(idx, view, fields=("packed", "offsets", "scales")):
 
 def kernels_vs_plain(idx, batch, imp_bits):
     """Each kernel against its plain version on the card, at the shapes the
-    main paths give it (batch 0's real windows, keys, pools and rows).
-    -> per-kernel {max_abs_err, ms, plain_ms}, both sparse views summed."""
+    main paths give it (batch 0's real windows, keys, pools and rows), with
+    its bound from these shapes and, where one PyTorch call computes the
+    same function (K3 an indexing gather, K4 torch.topk, K5 torch.sort), that
+    call's time; the port never calls them. K2-K6 compare, exchange and
+    gather on the CUDA cores out of shared memory, for which no peak rate is
+    cited: their bound counts bytes only. -> per-kernel {max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms}, both sparse views summed."""
     from qpp_fusion_rag_tpu_torch.ops import sparse as S
     from qpp_fusion_rag_tpu_torch.ops.kernels import bitonic, dense_topk, row_gather, window_gather
 
     bt, bq, st, sq, q_emb, _, _ = batch
-    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
            for k in ("group_max_packed_int8", "bitonic_segsum_rows", "gather_windows",
                      "bitonic_topp_rows", "bitonic_sort_rows", "rescore_match")}
+    work = {k: [0.0, 0.0] for k in res}      # bytes, int8 operations
 
-    def timed(name, kernel, plain, reps=10, plain_reps=10):
+    def timed(name, kernel, plain, reps=10, plain_reps=10, library=None, nbytes=0, ops=0):
         res[name]["ms"] += median_ms(kernel, reps)
         res[name]["plain_ms"] += median_ms(plain, plain_reps)
+        if library is not None:
+            res[name]["library_ms"] = (res[name]["library_ms"] or 0.0) + median_ms(library, reps)
+        work[name][0] += nbytes
+        work[name][1] += ops
 
     for view, terms, qw in (("bm25", bt, bq), ("splade", st, sq)):
         packed, offsets, scales = view_args(idx, view)
@@ -186,13 +214,16 @@ def kernels_vs_plain(idx, batch, imp_bits):
         ref = window_gather.gather_windows_plain(packed, starts, P_CAP)
         if not torch.equal(got, ref):
             raise AssertionError(f"K3 gather_windows != plain ({view}, G={starts.numel()})")
+        gidx = starts.long()[:, None] + torch.arange(P_CAP, device=starts.device)
         timed("gather_windows", lambda: window_gather.gather_windows(packed, starts, P_CAP),
-              lambda: window_gather.gather_windows_plain(packed, starts, P_CAP))
+              lambda: window_gather.gather_windows_plain(packed, starts, P_CAP),
+              library=lambda: packed[gidx], nbytes=starts.numel() * (4 + 8 * P_CAP))
         log(f"  K3 gather_windows {view} [G={starts.numel()}, cap={P_CAP}]: equal")
 
         keys, _, start_block = S._q8_keys(packed, offsets, scales, terms, qw, P_CAP,
                                           presorted=True)
         tq = terms.shape[1]
+        B, M = keys.shape
         sums, sids = bitonic.bitonic_segsum_rows(keys, start_block=start_block, max_run=tq)
         r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys)
         real = r_sids < S.SID_INVALID
@@ -203,7 +234,7 @@ def kernels_vs_plain(idx, batch, imp_bits):
                                float((sids - r_sids).abs().max()))
         timed("bitonic_segsum_rows", lambda: bitonic.bitonic_segsum_rows(
             keys, start_block=start_block, max_run=tq),
-            lambda: bitonic.bitonic_segsum_rows_plain(keys))
+            lambda: bitonic.bitonic_segsum_rows_plain(keys), nbytes=12 * B * M)
         log(f"  K2 bitonic_segsum_rows {view} {tuple(keys.shape)} start_block="
             f"{start_block} max_run={tq}: sids equal, sums equal on real positions "
             f"({int(real.sum())} of {real.numel()}; pads equal too: "
@@ -217,14 +248,17 @@ def kernels_vs_plain(idx, batch, imp_bits):
         if not torch.equal(got, bitonic.bitonic_topp_rows_plain(pkeys, 1024)):
             raise AssertionError(f"K4 bitonic_topp_rows != plain ({view}, {tuple(pkeys.shape)})")
         timed("bitonic_topp_rows", lambda: bitonic.bitonic_topp_rows(pkeys, bs=1024),
-              lambda: bitonic.bitonic_topp_rows_plain(pkeys, 1024))
+              lambda: bitonic.bitonic_topp_rows_plain(pkeys, 1024),
+              library=lambda: torch.topk(pkeys, 1024, dim=-1),
+              nbytes=4 * B * (M + 1024))
         log(f"  K4 bitonic_topp_rows {view} {tuple(pkeys.shape)} bs=1024: equal "
             f"({int((pkeys >= 0).sum())} run keys)")
         got = bitonic.bitonic_sort_rows(pkeys)
         if not torch.equal(got, bitonic.bitonic_sort_rows_plain(pkeys)):
             raise AssertionError(f"K5 bitonic_sort_rows != plain ({view}, {tuple(pkeys.shape)})")
         timed("bitonic_sort_rows", lambda: bitonic.bitonic_sort_rows(pkeys),
-              lambda: bitonic.bitonic_sort_rows_plain(pkeys))
+              lambda: bitonic.bitonic_sort_rows_plain(pkeys),
+              library=lambda: torch.sort(pkeys, dim=-1), nbytes=8 * B * M)
         log(f"  K5 bitonic_sort_rows {view} {tuple(pkeys.shape)}: equal")
 
         _, ci, _ = S._bitonic_pool(sums, sids, Q8R_CANDIDATES, wmax)
@@ -237,8 +271,10 @@ def kernels_vs_plain(idx, batch, imp_bits):
                                    msg=lambda m: f"K6 rescore_match != plain ({view}): {m}")
         r = res["rescore_match"]
         r["max_abs_err"] = max(r["max_abs_err"], float((got - ref).abs().max()))
+        n_cand = int((ci >= 0).sum())
         timed("rescore_match", lambda: row_gather.rescore_match(*args),
-              lambda: row_gather.rescore_match_plain(*args), plain_reps=5)
+              lambda: row_gather.rescore_match_plain(*args), plain_reps=5,
+              nbytes=n_cand * dp.shape[1] * 4 + ci.numel() * 8 + terms.numel() * 8)
         log(f"  K6 rescore_match {view} ids {tuple(ci.shape)} over {tuple(dp.shape)}: "
             f"within rtol {RTOL} (max rel err "
             f"{float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max()):.3g})")
@@ -251,14 +287,36 @@ def kernels_vs_plain(idx, batch, imp_bits):
         raise AssertionError("K1 group_max_packed_int8 != plain (int32 bit patterns)")
     r = res["group_max_packed_int8"]
     r["max_abs_err"] = float((got - ref).abs().max())
+    (M, D), N = q_int.shape, idx.corpus_rows.shape[0]
     timed("group_max_packed_int8", lambda: dense_topk.group_max_packed_int8(*args),
           lambda: dense_topk.group_max_packed_int8_plain(*args, idx.corpus_rows.shape[0]),
-          reps=5, plain_reps=3)
+          reps=5, plain_reps=3, nbytes=M * D + N * (D + 4) + 4 * got.numel(),
+          ops=2.0 * M * N * D)
+    r["matmul_only_ms"] = median_ms(lambda: int8_product(q_int, idx.corpus_rows), 3)
     log(f"  K1 group_max_packed_int8 {tuple(q_int.shape)} x {tuple(idx.corpus_rows.shape)}"
-        f" -> {tuple(got.shape)}: equal as int32 bit patterns")
+        f" -> {tuple(got.shape)}: equal as int32 bit patterns; the int8 product alone "
+        f"(torch._int_mm over corpus chunks, no group max): {r['matmul_only_ms']:.3f} ms")
     for name, r in res.items():
-        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms per step")
+        r["bound_ms"], r["bound_by"] = bound(*work[name], "int8")
+        log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+            f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.3f')} ms per step")
     return res
+
+
+def int8_product(q_int, rows):
+    """The int8 product alone, [M, D] x [N, D]^T -> int32 chunks (cuBLAS
+    through torch._int_mm), a yardstick for K1's main loop: no scale, no
+    group max. Chunks bound the [M, chunk] int32 output."""
+    for n0 in range(0, rows.shape[0], CORPUS_CHUNK):
+        torch._int_mm(q_int, rows[n0:n0 + CORPUS_CHUNK].T)
+
+
+def bf16_product(q, rows):
+    """The bf16 product alone (torch.matmul, bf16 out) in corpus chunks, a
+    yardstick for K7's main loop."""
+    for n0 in range(0, rows.shape[0], CORPUS_CHUNK):
+        torch.matmul(q, rows[n0:n0 + CORPUS_CHUNK].T)
 
 
 def check_step_output(out, n_docs):
@@ -282,34 +340,46 @@ def check_step_output(out, n_docs):
         raise AssertionError("duplicate fused ids in a row")
 
 
-def run_path(name, idx, batches, smi, expect, **kw):
-    """Drive ensemble_retrieval_step over the batches with the launch
-    counts set to 0 just before; check the outputs and that every kernel in
-    `expect` launched. -> (launch counts, per-batch ms)."""
+def drive(name, step_fn, batches, smi, expect, n_docs, rounds=ROUNDS):
+    """Run step_fn over the batches `rounds` times with the launch counts
+    set to 0 just before; check the first round's outputs and that every
+    kernel in `expect` launched. -> (launch counts, per-step ms: the first
+    step is the warm-up, the rest steady)."""
     from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
-    from qpp_fusion_rag_tpu_torch.pipeline.ensemble import ensemble_retrieval_step
 
     LAUNCHES.clear()
     outs, step_ms = [], []
-    for i, batch in enumerate(batches):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = ensemble_retrieval_step(idx, *batch, k=TOP_K, k_out=TOP_K, p_cap=P_CAP,
-                                      sparse_presorted=True, **kw)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        outs.append(out)
-        log(f"  {name} batch {i}: {step_ms[-1]:.1f} ms -> {BATCH / step_ms[-1] * 1e3:.0f} q/s "
-            f"({smi})")
+    for r in range(rounds):
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if r == 0:
+                outs.append(out)
     launches = dict(LAUNCHES)
+    steady = step_ms[1:] or step_ms
+    med = statistics.median(steady)
+    log(f"  {name}: {len(step_ms)} steps; first {step_ms[0]:.1f} ms, steady median {med:.3f} ms "
+        f"(min {min(steady):.3f}, max {max(steady):.3f}) -> {BATCH / med * 1e3:.0f} q/s ({smi})")
     log(f"  launches during the {name} path: {launches}")
     missing = [k for k in expect if launches.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"kernels of the {name} path never launched: {missing}")
     for out in outs:
-        check_step_output(out, idx.corpus_rows.shape[0])
+        check_step_output(out, n_docs)
     log("  outputs: shapes, finite QPP, non-increasing fused scores, unique ids < N: ok")
     return launches, step_ms
+
+
+def run_path(name, idx, batches, smi, expect, **kw):
+    """The ensemble step over the batches (drive)."""
+    from qpp_fusion_rag_tpu_torch.pipeline.ensemble import ensemble_retrieval_step
+
+    return drive(name, lambda b: ensemble_retrieval_step(
+        idx, *b, k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True, **kw),
+        batches, smi, expect, idx.corpus_rows.shape[0])
 
 
 def assert_close_ranking(g_s, g_i, c_s, c_i, what):
@@ -406,24 +476,56 @@ def packed_parts(v):
     return (bits & ~0x7F).view(torch.float32), base + (bits & 0x7F)
 
 
-def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj):
+def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj, rows_i8, d_scale, k1):
     """K7-K10 against their plain versions on the card over the full corpus,
     at the shapes their paths give them: K7 the flagship's 5,120 projected
     bf16 rows, in both corpus layouts; K8 (stride 1 and 4), K9 and K10 the
-    entry points' 1024 queries. -> per-kernel {max_abs_err, ms, plain_ms}."""
+    entry points' 1024 queries. K1 too at the int8 flagship's 5,120
+    quantized rows, bit for bit, its times added to k1 (K1's entry) as
+    ms_5120, plain_ms_5120 and bound_ms_5120. -> (per-kernel {max_abs_err,
+    ms, plain_ms, ...}, the corpus's largest row norm)."""
     from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk as DK
     from qpp_fusion_rag_tpu_torch.ops.kernels import streaming_topk as ST
 
     n = rows_bf16.shape[0]
     cmax = max_row_norm(rows_bf16)
-    qv = DK._project(q_emb, view_proj).reshape(-1, DIM).to(torch.bfloat16).contiguous()
+    qf = DK._project(q_emb, view_proj).reshape(-1, DIM)
+    q5, _ = DK.quantize_rows(qf)          # what dense_topk_int8 gives K1 on the flagship
+    args = (q5, rows_i8, d_scale)
+    got = DK.group_max_packed_int8(*args)
+    ref = DK.group_max_packed_int8_plain(*args, n)
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("K1 group_max_packed_int8 at the flagship's rows != plain "
+                             "(int32 bit patterns)")
+    k1["max_abs_err"] = max(k1["max_abs_err"], float((got - ref).abs().max()))
+    M5 = q5.shape[0]
+    k1["bound_ms_5120"] = bound(M5 * DIM + n * (DIM + 4) + 4 * got.numel(),
+                                2.0 * M5 * n * DIM, "int8")[0]
+    del got, ref
+    k1["ms_5120"] = median_ms(lambda: DK.group_max_packed_int8(*args), 5)
+    k1["plain_ms_5120"] = median_ms(lambda: DK.group_max_packed_int8_plain(*args, n), 1)
+    log(f"  K1 group_max_packed_int8 {tuple(q5.shape)} x {tuple(rows_i8.shape)}: equal as "
+        f"int32 bit patterns; kernel {k1['ms_5120']:.3f} ms, plain {k1['plain_ms_5120']:.3f} "
+        f"ms, bound {k1['bound_ms_5120']:.3f} ms")
+    del q5, args
+    qv = qf.to(torch.bfloat16).contiguous()
+    del qf
     qb = q_emb.to(torch.bfloat16).contiguous()
     res = {}
 
-    def timed(name, kernel, plain, err, reps=5, plain_reps=3, **extra):
+    def timed(name, kernel, plain, err, q, out_bytes, kind="bf16", reps=5, plain_reps=3,
+              **extra):
+        """Kernel and plain times; the bound counts q and the corpus read
+        once, out_bytes written once and 2 M N D operations. No single
+        PyTorch call computes a group max: library_ms is null."""
+        M = q.shape[0]
+        nbytes = q.numel() * q.element_size() + n * DIM * (2 if kind == "bf16" else 1) + out_bytes
+        b_ms, b_by = bound(nbytes, 2.0 * M * n * DIM, kind)
         res[name] = {"max_abs_err": err, "ms": median_ms(kernel, reps),
-                     "plain_ms": median_ms(plain, plain_reps), **extra}
-        log(f"  {name}: kernel {res[name]['ms']:.3f} ms, plain {res[name]['plain_ms']:.3f} ms")
+                     "plain_ms": median_ms(plain, plain_reps), "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None, **extra}
+        log(f"  {name}: kernel {res[name]['ms']:.3f} ms, plain {res[name]['plain_ms']:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by})")
 
     got = DK.group_max_packed(qv, rows_bf16)
     ref = DK.group_max_packed_plain(qv, rows_bf16, n)
@@ -448,8 +550,12 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj):
     log(f"  K7 [D, N] layout: within tolerance (max err {err_t:.3g}, {nd_t} groups differ); "
         f"bit-equal to the row layout: {same}; kernel {t_ms['ms_transposed']:.3f} ms, plain "
         f"{t_ms['plain_ms_transposed']:.3f} ms")
+    t_ms["matmul_only_ms"] = median_ms(lambda: bf16_product(qv, rows_bf16), 3)
+    log(f"  the bf16 product alone (torch.matmul over corpus chunks, bf16 out, no group "
+        f"max): {t_ms['matmul_only_ms']:.3f} ms")
     timed("group_max_packed", lambda: DK.group_max_packed(qv, rows_bf16),
-          lambda: DK.group_max_packed_plain(qv, rows_bf16, n), max(err, err_t), **t_ms)
+          lambda: DK.group_max_packed_plain(qv, rows_bf16, n), max(err, err_t), qv,
+          4 * qv.shape[0] * -(-n // 128), **t_ms)
 
     for stride in (1, 4):
         got = DK.group_max_scores(qb, rows_bf16, stride=stride)
@@ -459,7 +565,8 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj):
             f"within tolerance (max err {err:.3g}, {nd} ids differ, all near-ties)")
         del got, ref
     timed("group_max_scores", lambda: DK.group_max_scores(qb, rows_bf16, stride=4),
-          lambda: DK.group_max_scores_plain(qb, rows_bf16, n, 4), err,
+          lambda: DK.group_max_scores_plain(qb, rows_bf16, n, 4), err, qb,
+          8 * qb.shape[0] * (-(-n // 2048) * 2048 // 512),
           ms_stride1=median_ms(lambda: DK.group_max_scores(qb, rows_bf16), 5))
 
     rows_g, _ = global_int8(rows_bf16)
@@ -470,45 +577,62 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj):
         raise AssertionError("K9 group_max_packed_int8_global != plain")
     log(f"  K9 group_max_packed_int8_global {tuple(q_int.shape)} x {tuple(rows_g.shape)}: equal")
     timed("group_max_packed_int8_global", lambda: DK.group_max_packed_int8_global(q_int, rows_g),
-          lambda: DK.group_max_packed_int8_global_plain(q_int, rows_g, n), 0.0)
+          lambda: DK.group_max_packed_int8_global_plain(q_int, rows_g, n), 0.0, q_int,
+          4 * got.numel(), kind="int8")
     del got, ref, rows_g
 
     got = ST.streaming_group_max(qb, rows_bf16)
+    out_bytes = 8 * got[0].numel()
     ref = ST.streaming_group_max_plain(qb, rows_bf16, n)
     err, nd = check_group_close("K10", qb, rows_bf16, cmax, got, ref)
     log(f"  K10 streaming_group_max {tuple(qb.shape)} -> {tuple(got[0].shape)}: within "
         f"tolerance (max err {err:.3g}, {nd} ids differ, all near-ties)")
     del got, ref
     timed("streaming_group_max", lambda: ST.streaming_group_max(qb, rows_bf16),
-          lambda: ST.streaming_group_max_plain(qb, rows_bf16, n), err)
+          lambda: ST.streaming_group_max_plain(qb, rows_bf16, n), err, qb, out_bytes)
     return res, cmax
 
 
-def run_flagship(name, step, corpus, batches, view_proj, smi, expect, **kw):
-    """Drive a flagship step over the batches with the launch counts set to
-    0 just before; check the outputs and that every kernel in `expect`
-    launched. -> (launch counts, per-batch ms)."""
-    from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
+def run_flagship(name, step, corpus, batches, view_proj, smi, expect, rounds=ROUNDS, **kw):
+    """A flagship step over the batches (drive)."""
+    return drive(name, lambda b: step(b[0], view_proj, corpus, b[1], k=TOP_K, k_out=TOP_K, **kw),
+                 batches, smi, expect, corpus.shape[0], rounds)
 
-    LAUNCHES.clear()
-    outs, step_ms = [], []
-    for i, (q_emb, tf) in enumerate(batches):
+
+def profile_steps(name, fn, steps=None):
+    """Device time of `steps` calls of fn under torch.profiler: the busy
+    share of the window (union of the kernels' intervals over the window
+    from the first event to the last), and the five kernels that took most
+    of the device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = steps or PROFILE_STEPS
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs.append(step(q_emb, view_proj, corpus, tf, k=TOP_K, k_out=TOP_K, **kw))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        log(f"  {name} batch {i}: {step_ms[-1]:.1f} ms -> {BATCH / step_ms[-1] * 1e3:.0f} q/s "
-            f"({smi})")
-    launches = dict(LAUNCHES)
-    log(f"  launches during the {name} path: {launches}")
-    missing = [k for k in expect if launches.get(k, 0) < 1]
-    if missing:
-        raise AssertionError(f"kernels of the {name} path never launched: {missing}")
-    for out in outs:
-        check_step_output(out, corpus.shape[0])
-    log("  outputs: shapes, finite QPP, non-increasing fused scores, unique ids < N: ok")
-    return launches, step_ms
+    events = list(prof.events())
+    kern = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                  if e.device_type == DeviceType.CUDA)
+    if not kern:
+        raise AssertionError(f"profile of {name}: no device events")
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    busy, end = 0.0, t0
+    by_name = {}
+    for a, b, n in kern:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        by_name[n] = by_name.get(n, 0.0) + (b - a)
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:5]
+    log(f"  {name}: device busy {busy / 1e3:.3f} ms of a {(t1 - t0) / 1e3:.3f} ms window over "
+        f"{steps} steps (idle share {1 - busy / (t1 - t0):.3f}); kernel time {total / 1e3:.3f} ms")
+    for n, us in top:
+        log(f"    {us / 1e3 / steps:8.3f} ms/step  {us / total * 100:5.1f} %  {n[:90]}")
 
 
 def entry_call(name, kernel, fn, n_docs):
@@ -639,7 +763,7 @@ def main() -> None:
     log(f"[2] kernels built in {build_s:.1f} s (one nvcc per source, in parallel) -> "
         f"{path.relative_to(ROOT)}")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(k in line for k in ("registers", "spill", "arning")) or line.startswith("=="):
             log(f"    ptxas: {line.strip()}")
 
     t0 = time.perf_counter()
@@ -659,19 +783,22 @@ def main() -> None:
         f"{tuple(rows.shape)} int8 + bf16 rerank rows + index upload "
         f"{time.perf_counter() - t0:.1f} s")
     batches = make_batches(h, dev)
+    from qpp_fusion_rag_tpu_torch.data.synthetic import zipf_queries
+    long_q = [torch.as_tensor(x, device=dev) for x in zipf_queries(
+        h["splade_csr_offsets"], BATCH, n_terms=LONG_TQ, seed=8)]
     del h
 
     log("[4] kernels vs plain versions on the card, main-path shapes")
     res = kernels_vs_plain(idx_rs, batches[0], imp_bits)
 
     q8_kernels = ("group_max_packed_int8", "bitonic_segsum_rows", "gather_windows")
-    log(f"[5] q8 path: ensemble_retrieval_step (q8, presorted) over {len(batches)} batches "
-        f"of {BATCH} queries, {N_DOCS} docs")
+    log(f"[5] q8 path: ensemble_retrieval_step (q8, presorted), {ROUNDS} passes over "
+        f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs")
     q8_launches, q8_ms = run_path("q8", idx, batches, smi, q8_kernels, sparse_mode="q8")
 
     q8r_kernels = q8_kernels + ("bitonic_topp_rows", "rescore_match")
     log(f"[6] q8r path: ensemble_retrieval_step (q8r, {Q8R_CANDIDATES} candidates, dense "
-        f"pool {DENSE_POOL}, bf16 rerank rows, doc_imp_bits {imp_bits}) over "
+        f"pool {DENSE_POOL}, bf16 rerank rows, doc_imp_bits {imp_bits}), {ROUNDS} passes over "
         f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs")
     q8r_launches, q8r_ms = run_path(
         "q8r", idx_rs, batches, smi, q8r_kernels, sparse_mode="q8r",
@@ -696,6 +823,34 @@ def main() -> None:
     if fb_launches.get("bitonic_sort_rows", 0) < 1 or fb_launches.get("bitonic_topp_rows", 0):
         raise AssertionError(f"the fallback call did not take the K5 pool: {fb_launches}")
 
+    log(f"[7b] long rows: SPLADE queries of {LONG_TQ} terms, M = {LONG_TQ} x {P_CAP} = "
+        f"{LONG_TQ * P_CAP} keys (K2 and K4 on a cluster of two CTAs per row): one "
+        f"sparse_score_topk_q8 and one q8r call of {BATCH} queries")
+    lt, lw = long_q
+    splade_rs = view_args(idx_rs, "splade", ("packed", "offsets", "scales", "doc_packed",
+                                             "doc_scale"))
+    rs_kw = dict(k=TOP_K, p_cap=P_CAP, candidates=Q8R_CANDIDATES, imp_bits=imp_bits,
+                 presorted=True)
+    long_out, long_launches, long_ms = {}, {}, {}
+    for mode, expect, call in (
+            ("q8", ("bitonic_segsum_rows",), lambda: S.sparse_score_topk_q8(
+                *splade_rs[:3], lt, lw, k=TOP_K, p_cap=P_CAP, presorted=True)),
+            ("q8r", ("bitonic_segsum_rows", "bitonic_topp_rows", "rescore_match"),
+             lambda: S.sparse_score_topk_q8_rescored(*splade_rs, lt, lw, **rs_kw))):
+        LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        long_out[mode] = call()
+        torch.cuda.synchronize()
+        long_ms[mode] = (time.perf_counter() - t0) * 1e3
+        long_launches[mode] = dict(LAUNCHES)
+        log(f"  {mode}: {long_ms[mode]:.1f} ms; launches {long_launches[mode]}")
+        missing = [k for k in expect if long_launches[mode].get(k, 0) < 1]
+        if missing:
+            raise AssertionError(f"the long-row {mode} call never launched {missing}")
+        if int((long_out[mode][1] >= 0).sum()) == 0:
+            raise AssertionError(f"the long-row {mode} call found no documents")
+
     log(f"[8] cross-check of the kernel views for {CROSS_Q} queries on CPU copies")
     for view, terms, qw in (("bm25", bt, bq), ("splade", st, sq)):
         c = [x.cpu() for x in view_args(idx_rs, view, ("packed", "offsets", "scales",
@@ -718,6 +873,18 @@ def main() -> None:
             c_s, c_i = S.sparse_score_topk_q8_rescored(*c, ct, cq, **fb_kw)
             assert_close_ranking(fb_s[:CROSS_Q].cpu(), fb_i[:CROSS_Q].cpu(), c_s, c_i,
                                  "bm25 q8r fallback (K5 pool)")
+        else:
+            lt_c, lw_c = lt[:CROSS_Q].cpu(), lw[:CROSS_Q].cpu()
+            g_s, g_i = long_out["q8"]
+            c_s, c_i = S.sparse_score_topk_q8(*c[:3], lt_c, lw_c, k=TOP_K, p_cap=P_CAP,
+                                              presorted=True)
+            if not (torch.equal(g_i[:CROSS_Q].cpu(), c_i)
+                    and torch.equal(g_s[:CROSS_Q].cpu(), c_s)):
+                raise AssertionError(f"splade q8 at Tq {LONG_TQ}: card and CPU disagree")
+            g_s, g_i = long_out["q8r"]
+            c_s, c_i = S.sparse_score_topk_q8_rescored(*c, lt_c, lw_c, **rs_kw)
+            assert_close_ranking(g_s[:CROSS_Q].cpu(), g_i[:CROSS_Q].cpu(), c_s, c_i,
+                                 f"splade q8r at Tq {LONG_TQ}")
         del c
     c_rows, c_scale = idx_rs.corpus_rows.cpu(), idx_rs.d_scale.cpu()
     g_s, g_i = dense_topk.dense_topk_int8(q_emb, idx_rs.corpus_rows, idx_rs.d_scale, k=TOP_K)
@@ -732,8 +899,9 @@ def main() -> None:
     assert_close_ranking(g_s[:CROSS_Q].cpu(), g_i[:CROSS_Q].cpu(), c_s, c_i,
                          "dense_view_rescored")
     del c_rows, c_bf16
-    log(f"  q8 views and dense view equal; q8r views, the K5 fallback and the rescored "
-        f"dense view within rtol {RTOL} (ids up to near-tie swaps)")
+    log(f"  q8 views (SPLADE at Tq {LONG_TQ} too) and dense view equal; q8r views (SPLADE "
+        f"at Tq {LONG_TQ} too), the K5 fallback and the rescored dense view within rtol "
+        f"{RTOL} (ids up to near-tie swaps)")
     log("  cross-check ok")
 
     phase_s["[1-8] ensemble paths and cross-check"] = time.perf_counter() - t_all
@@ -743,20 +911,23 @@ def main() -> None:
         fused_retrieval_step,
         learned_fused_retrieval_step,
     )
+    from qpp_fusion_rag_tpu_torch.pipeline.ensemble import ensemble_retrieval_step
     from qpp_fusion_rag_tpu_torch.pipeline.interop import mlp_params_from_numpy
 
     t0 = time.perf_counter()
     rows_bf16 = idx_rs.rerank_rows
     fbatches, view_proj, mlp = flagship_inputs(batches, dev)
-    log(f"[9] dense kernels K7-K10 vs plain on the card over the full bf16 corpus "
-        f"{tuple(rows_bf16.shape)} (flagship: {VIEWS_R} views x {BATCH} queries)")
-    dres, cmax = dense_kernels_vs_plain(rows_bf16, fbatches[0][0], view_proj)
+    log(f"[9] dense kernels K7-K10, and K1 at the flagship's rows, vs plain on the card over "
+        f"the full corpus {tuple(rows_bf16.shape)} (flagship: {VIEWS_R} views x {BATCH} "
+        f"queries)")
+    dres, cmax = dense_kernels_vs_plain(rows_bf16, fbatches[0][0], view_proj, idx.corpus_rows,
+                                        idx.d_scale, res["group_max_packed_int8"])
     res.update(dres)
     phase_s["[9] dense kernels vs plain"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    log(f"[10] dense flagship: fused_retrieval_step, {VIEWS_R} views, {len(batches)} batches "
-        f"of {BATCH} queries, {N_DOCS} docs, on each route")
+    log(f"[10] dense flagship: fused_retrieval_step, {VIEWS_R} views, {ROUNDS} passes over "
+        f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs, on each route")
     flag_launches, flag_ms = {}, {}
     for name, corpus, kernel, kw in (
             ("flagship_int8", idx.corpus_rows, "group_max_packed_int8",
@@ -790,6 +961,25 @@ def main() -> None:
     phase_s["[11] entry points"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
+    log(f"[11b] device time: torch.profiler over {PROFILE_STEPS} steps of each main path")
+    for name, fn in (
+            ("q8", lambda: ensemble_retrieval_step(
+                idx, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True,
+                sparse_mode="q8")),
+            ("q8r", lambda: ensemble_retrieval_step(
+                idx_rs, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True,
+                sparse_mode="q8r", sparse_candidates=Q8R_CANDIDATES,
+                dense_rescore_pool=DENSE_POOL, doc_imp_bits=imp_bits)),
+            ("flagship_int8", lambda: fused_retrieval_step(
+                *fbatches[1][:1], view_proj, idx.corpus_rows, fbatches[1][1], k=TOP_K,
+                k_out=TOP_K, corpus_scale=idx.d_scale)),
+            ("flagship_bf16", lambda: fused_retrieval_step(
+                *fbatches[1][:1], view_proj, rows_bf16, fbatches[1][1], k=TOP_K, k_out=TOP_K,
+                use_pallas=True))):
+        profile_steps(name, fn)
+    phase_s["[11b] profile"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
     log(f"[12] flagship cross-check of {CROSS_Q} queries on CPU copies")
     flagship_cross_check(rows_bf16, idx.corpus_rows, idx.d_scale, fbatches[0], view_proj, cmax)
     log("  cross-check ok")
@@ -813,6 +1003,7 @@ def main() -> None:
             "streaming_group_max": (src + "streaming_group_max.cu", tpu + "streaming_topk.py:91",
                                     "streaming")}
     paths = {"q8": q8_launches, "q8r": q8r_launches, "q8r_fallback": fb_launches,
+             "splade_q8_tq32": long_launches["q8"], "splade_q8r_tq32": long_launches["q8r"],
              **flag_launches, **entry}
     kernels = []
     for name, (source, replaces, main_path) in meta.items():
@@ -823,8 +1014,10 @@ def main() -> None:
                         **res[name]})
     for name, sec in phase_s.items():
         log(f"  {name}: {sec:.1f} s")
-    log(f"  total {time.perf_counter() - t_all:.1f} s; q8 step ms {q8_ms}; q8r step ms "
-        f"{q8r_ms}; fallback call {fb_ms:.1f} ms; flagship step ms {flag_ms}; host build "
+    steady = {"q8": q8_ms, "q8r": q8r_ms, **flag_ms}
+    steady = {k: round(statistics.median(v[1:] or v), 3) for k, v in steady.items()}
+    log(f"  total {time.perf_counter() - t_all:.1f} s; steady median step ms {steady}; "
+        f"fallback call {fb_ms:.1f} ms; SPLADE Tq {LONG_TQ} calls ms {long_ms}; host build "
         f"{host_s:.1f} s; kernel build {build_s:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

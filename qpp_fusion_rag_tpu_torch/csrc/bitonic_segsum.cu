@@ -11,9 +11,10 @@
 // ascending / descending (the presorted posting layout).
 //
 // Bound on the H100: shared-memory bandwidth and barriers. The row lives in
-// shared memory (64 KB at M = 16,384, 128 KB at M = 32,768); at the main
-// path's presorted start_block = 4096 the network is 54 compare-exchange
-// stages over M/2 pairs, each a block-wide barrier.
+// shared memory (64 KB at M = 16,384, 128 KB at M = 32,768, two CTAs of a
+// cluster at M = 65,536); at the main path's presorted start_block = 4096
+// the network is 54 compare-exchange stages over M/2 pairs, each a
+// block-wide barrier.
 //
 // Design: one CTA of 1024 threads per row; the keys never leave shared
 // memory between the load and the two output stores. Rows that are not a
@@ -25,7 +26,12 @@
 // pass over the chunk writes the run totals. Shared memory is indexed with
 // one pad word per 32 keys so the chunk walks hit 32 distinct banks. The
 // compare-exchange network is the one in bitonic_common.cuh, shared with K4
-// and K5.
+// and K5. A row of more than 32,768 keys is sorted by a cluster of two
+// CTAs (bitonic_common.cuh: sort_row); each then scans its own half, and
+// the halves meet through distributed shared memory: the lower half reads
+// the first doc id of the upper one (is its last run complete?) and the
+// upper half reads the lower half's last doc id and sums that doc's run
+// backwards from the lower half's end (the carry into its first run).
 #include <climits>
 #include <cuda_runtime.h>
 
@@ -58,22 +64,49 @@ __device__ __forceinline__ void warp_inclusive_scan(int& f, int& s, int lane) {
 __global__ void __launch_bounds__(kThreads) bitonic_segsum_kernel(
     const int* __restrict__ keys, int M, int Mp, int start_block, int plus_one,
     int* __restrict__ sums, int* __restrict__ sids) {
-  extern __shared__ int x[];  // Mp keys at slot(i)
+  extern __shared__ int x[];  // this CTA's keys at slot(i)
   __shared__ int warp_f[kThreads / 32];
   __shared__ int warp_s[kThreads / 32];
-  const long long row = blockIdx.x;
-  const int* in = keys + row * M;
-  qfr_bitonic::load_row(x, in, M, Mp, INT_MAX);
+  __shared__ int edge[3];     // prev_sid, next_sid, carry
+  const qfr_bitonic::Part p = qfr_bitonic::part_of(Mp);
+  qfr_bitonic::load_row(x, keys + p.row * M, M, p, INT_MAX);
   // at round k, pairs (i, i + j) with bit j of i clear sort ascending where
   // bit k of i is clear (k = Mp: everywhere)
-  qfr_bitonic::network(x, Mp, start_block, Mp);
+  qfr_bitonic::sort_row(x, p, start_block);
 
-  // segmented scan over the first M sorted keys, chunk per thread
-  const int chunk = (M + kThreads - 1) / kThreads;
-  const int lo = min(M, static_cast<int>(threadIdx.x) * chunk);
-  const int hi = min(M, lo + chunk);
+  // the neighbouring half's edge: the doc id just before this part (-1:
+  // none) with the sum of its run there, and the doc id just after it
+  int prev_sid = -1, next_sid = -1, carry = 0;
+  if (p.halves == 2) {
+    qfr_bitonic::cg::cluster_group cluster = qfr_bitonic::cg::this_cluster();
+    cluster.sync();                       // both halves sorted
+    if (threadIdx.x == 0) {
+      const int* other = cluster.map_shared_rank(x, p.rank ^ 1);
+      int e0 = -1, e1 = -1, e2 = 0;
+      if (p.rank == 0) {
+        e1 = sid_of(other[slot(0)]);
+      } else {
+        e0 = sid_of(other[slot(p.n - 1)]);
+        for (int i = p.n - 1; i >= 0 && sid_of(other[slot(i)]) == e0; --i)
+          e2 += (other[slot(i)] & 0xFF) + plus_one;
+      }
+      edge[0] = e0;
+      edge[1] = e1;
+      edge[2] = e2;
+    }
+    cluster.sync();                       // the other half stays until these reads are done
+    prev_sid = edge[0];
+    next_sid = edge[1];
+    carry = edge[2];
+  }
+
+  // segmented scan over this part's first m sorted keys, chunk per thread
+  const int m = min(p.n, M - p.base());
+  const int chunk = (m + kThreads - 1) / kThreads;
+  const int lo = min(m, static_cast<int>(threadIdx.x) * chunk);
+  const int hi = min(m, lo + chunk);
   int f = 0, s = 0;
-  int prev = lo > 0 ? sid_of(x[slot(lo - 1)]) : -1;
+  int prev = lo > 0 ? sid_of(x[slot(lo - 1)]) : prev_sid;
   for (int i = lo; i < hi; ++i) {
     const int key = x[slot(i)];
     const int sid = sid_of(key);
@@ -108,18 +141,19 @@ __global__ void __launch_bounds__(kThreads) bitonic_segsum_kernel(
     warp_s[lane] = ps;
   }
   __syncthreads();
-  // carry-in = (warps before) combined with (lanes before, this warp)
-  int run = fe ? se : warp_s[warp] + se;
+  // carry-in = (the other half's run, if no run starts before this chunk)
+  // combined with (warps before) and (lanes before, this warp)
+  int run = fe ? se : warp_s[warp] + se + (warp_f[warp] ? 0 : carry);
 
-  int* out_sums = sums + row * M;
-  int* out_sids = sids + row * M;
-  prev = lo > 0 ? sid_of(x[slot(lo - 1)]) : -1;
+  int* out_sums = sums + p.row * M + p.base();
+  int* out_sids = sids + p.row * M + p.base();
+  prev = lo > 0 ? sid_of(x[slot(lo - 1)]) : prev_sid;
   for (int i = lo; i < hi; ++i) {
     const int key = x[slot(i)];
     const int sid = sid_of(key);
     const int v = (key & 0xFF) + plus_one;
     run = (sid != prev) ? v : run + v;
-    const bool last = (i == M - 1) || sid_of(x[slot(i + 1)]) != sid;
+    const bool last = (i == m - 1) ? next_sid != sid : sid_of(x[slot(i + 1)]) != sid;
     out_sums[i] = last ? run : -1;
     out_sids[i] = sid;
     prev = sid;
@@ -133,13 +167,8 @@ extern "C" int qfr_bitonic_segsum(const void* keys, int B, int M, int start_bloc
   const int Mp = qfr_bitonic::padded_len(M);
   if (M < 1 || Mp > qfr_bitonic::kMaxRow || !qfr_bitonic::valid_start_block(start_block, Mp))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = qfr_bitonic::smem_bytes(Mp);
-  cudaError_t err = cudaFuncSetAttribute(
-      bitonic_segsum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bitonic_segsum_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), M, Mp, start_block, plus_one,
-      static_cast<int*>(sums), static_cast<int*>(sids));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(qfr_bitonic::launch_rows(
+      bitonic_segsum_kernel, B, Mp, static_cast<cudaStream_t>(stream),
+      static_cast<const int*>(keys), M, Mp, start_block, plus_one, static_cast<int*>(sums),
+      static_cast<int*>(sids)));
 }

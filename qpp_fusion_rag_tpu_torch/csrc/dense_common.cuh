@@ -1,11 +1,12 @@
-// The main loop and epilogues shared by the dense group-max kernels:
-// K1 dense_topk_int8.cu, K7 group_max_packed.cu, K8 group_max_scores.cu,
-// K9 group_max_int8_global.cu and K10 streaming_group_max.cu.
+// The mma.sync main loop and epilogues of the dense group-max kernels K8
+// group_max_scores.cu, K9 group_max_int8_global.cu and K10
+// streaming_group_max.cu. K1 and K7 run on the TMA + wgmma loop of
+// dense_wgmma.cuh instead.
 //
 // One block of 256 threads (8 warps as 4 x 2, each a 32 x 64 sub-tile)
 // computes a 128-query x 128-doc tile of dot products with mma.sync on the
-// tensor cores: s8 m16n8k32 -> s32 (K1, K9) or bf16 m16n8k16 -> f32 (K7,
-// K8, K10). A 128-doc tile is exactly one output group.
+// tensor cores: s8 m16n8k32 -> s32 (K9) or bf16 m16n8k16 -> f32 (K8,
+// K10). A 128-doc tile is exactly one output group.
 //
 // Both element types stage K in slices of 64 BYTES (64 int8 or 32 bf16
 // values) per operand row, with a 16-byte row pad so the fragment loads hit
@@ -13,10 +14,7 @@
 // and the next slice's global loads are in flight during the current
 // slice's mma (tile_loop). In bytes, the s8 m16n8k32 and bf16 m16n8k16 fragments
 // sit at the same offsets (row g / g+8, bytes tg*4 and tg*4+16), so one
-// fragment loader serves both and only the mma instruction differs. A doc
-// operand stored [D, N] (K7's transposed layout) is staged as 32 k-rows x
-// 128 docs and read with ldmatrix.trans, which delivers the same bf16
-// fragment without a transposed copy of the corpus.
+// fragment loader serves both and only the mma instruction differs.
 //
 // Accumulator element (mi, ni, e) of warp (wm, wn), lane (g = lane / 4,
 // tg = lane % 4) is tile row wm*32 + mi*16 + g + 8*(e / 2) and tile column
@@ -30,17 +28,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace dense {
 
 constexpr int kBM = 128, kBN = 128;      // queries x docs per tile; kBN = one group
 constexpr int kSlice = 64;               // K bytes staged per operand row and step
 constexpr int kLds = kSlice + 16;        // bytes per staged row
-constexpr int kTransRows = kSlice / 2;   // k-rows of a staged [D, N] bf16 slice
-constexpr int kLdt = kBN * 2 + 16;       // bytes per staged k-row of that slice
 constexpr int kThreads = 256;
-constexpr float kNegFinite = -3.0e38f;   // packed pad score: finite, so no NaN
 
 struct S8 {
   using Acc = int;
@@ -91,7 +84,6 @@ __device__ __forceinline__ void zero(Acc (&acc)[2][8][4]) {
 }
 
 constexpr int kChunks = kBM * (kSlice / 16) / kThreads;  // 16-byte chunks per thread (2)
-static_assert(kChunks * kThreads == kTransRows * (kBN / 8), "both slices: 2 chunks a thread");
 
 // One 64-byte K slice of a 128-row operand on its way from device memory to
 // shared memory. load() starts the global reads into registers and store()
@@ -117,31 +109,6 @@ struct RowSlice {
     for (int i = 0; i < kChunks; ++i) {
       const int ch = tid + i * kThreads;
       *reinterpret_cast<int4*>(dst + (ch >> 2) * ld + (ch & 3) * 16) = v[i];
-    }
-  }
-};
-
-// The same for a [D, N] bf16 doc operand: k-rows k0 .. k0+31, docs
-// n0 .. n0+127 (N a multiple of 8, so a 16-byte chunk is all in or all
-// out), stored [32 k][128 docs] with pitch kLdt; zero past D and N.
-struct TransSlice {
-  int4 v[kChunks];
-  __device__ __forceinline__ void load(const uint16_t* src, int D, long long N, int k0,
-                                       long long n0, int tid) {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int ch = tid + i * kThreads, r = ch >> 4, cc = (ch & 15) * 8;
-      v[i] = make_int4(0, 0, 0, 0);
-      if (k0 + r < D && n0 + cc < N)
-        v[i] = __ldg(reinterpret_cast<const int4*>(src + static_cast<long long>(k0 + r) * N +
-                                                   n0 + cc));
-    }
-  }
-  __device__ __forceinline__ void store(int8_t* dst, int tid) const {
-#pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const int ch = tid + i * kThreads;
-      *reinterpret_cast<int4*>(dst + (ch >> 4) * kLdt + (ch & 15) * 16) = v[i];
     }
   }
 };
@@ -180,108 +147,36 @@ __device__ __forceinline__ void mma_slice(typename Op::Acc (&acc)[2][8][4], cons
   }
 }
 
-// The same with the doc operand staged [32 k][128 docs] (TransSlice):
-// ldmatrix.x4.trans hands each lane its bf16 pairs (k = 2tg, 2tg+1; doc g)
-// for two 8-doc blocks and both k halves of a k16 step.
-__device__ __forceinline__ void mma_slice_trans(float (&acc)[2][8][4], const int8_t* As,
-                                                const int8_t* Bt, const Lane& L) {
-#pragma unroll
-  for (int kh = 0; kh < kTransRows; kh += 16) {
-    unsigned a[2][4], b[8][2];
-    load_a(a, As, kLds, kh * 2, L);
-#pragma unroll
-    for (int np = 0; np < 8; np += 2) {
-      const int kr = kh + (L.lane & 7) + ((L.lane >> 3) & 1) * 8;
-      const int nc = L.wn * 64 + (np + (L.lane >> 4)) * 8;
-      const unsigned addr =
-          static_cast<unsigned>(__cvta_generic_to_shared(Bt + kr * kLdt + nc * 2));
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-          : "=r"(b[np][0]), "=r"(b[np][1]), "=r"(b[np + 1][0]), "=r"(b[np + 1][1])
-          : "r"(addr));
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) Bf16::mma(acc[mi][ni], a[mi], b[ni]);
-  }
-}
-
 // acc += the dot products of query rows m0 .. m0+127 (row-major, M rows)
-// with doc rows n0 .. n0+127 over all of K: the docs row-major [N, D], or
-// [D, N] bf16 when kTrans. row_bytes = D * sizeof(element). The next
-// slice's global loads start before the current slice's mma; the
-// order of the mma steps, and so every sum, is the same as without them.
-template <class Op, bool kTrans = false>
+// with doc rows n0 .. n0+127 (row-major [N, D]) over all of K; row_bytes =
+// D * sizeof(element). The next slice's global loads start before the
+// current slice's mma; the order of the mma steps, and so every sum, is the
+// same as without them.
+template <class Op>
 __device__ __forceinline__ void tile_loop(typename Op::Acc (&acc)[2][8][4], int8_t* As,
                                           int8_t* Bs, const void* q, long long m0, int M,
-                                          const void* c, long long n0, int N, int D,
-                                          int row_bytes, const Lane& L) {
+                                          const void* c, long long n0, int N, int row_bytes,
+                                          const Lane& L) {
   const int8_t* qb = static_cast<const int8_t*>(q);
-  RowSlice a;
-  typename std::conditional<kTrans, TransSlice, RowSlice>::type b;
+  const int8_t* cb = static_cast<const int8_t*>(c);
+  RowSlice a, b;
   auto load = [&](int k0b) {
     a.load(qb, m0, M, row_bytes, k0b, L.tid);
-    if constexpr (kTrans)
-      b.load(static_cast<const uint16_t*>(c), D, N, k0b / 2, n0, L.tid);
-    else
-      b.load(static_cast<const int8_t*>(c), n0, N, row_bytes, k0b, L.tid);
+    b.load(cb, n0, N, row_bytes, k0b, L.tid);
   };
   zero(acc);
   load(0);
   for (int k0b = 0; k0b < row_bytes; k0b += kSlice) {
     a.store(As, kLds, L.tid);
-    if constexpr (kTrans)
-      b.store(Bs, L.tid);
-    else
-      b.store(Bs, kLds, L.tid);
+    b.store(Bs, kLds, L.tid);
     __syncthreads();
     if (k0b + kSlice < row_bytes) load(k0b + kSlice);
-    if constexpr (kTrans)
-      mma_slice_trans(acc, As, Bs, L);
-    else
-      mma_slice<Op>(acc, As, kLds, Bs, kLds, L);
+    mma_slice<Op>(acc, As, kLds, Bs, kLds, L);
     __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------- epilogues
-
-// Packed float max per row: every score gets its column (the doc's lane,
-// n & 127) in the low 7 mantissa bits, then a FLOAT max (fmaxf; as
-// integers, negative floats order the other way). score(mi, ni, e, col)
-// gives the f32 score of an accumulator element. -> red[wn][row]; the
-// caller combines the two column halves after the barrier.
-template <class ScoreFn>
-__device__ __forceinline__ void packed_max_rows(ScoreFn score, float (&red)[2][kBM],
-                                                const Lane& L) {
-  float rmax[2][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) rmax[mi][0] = rmax[mi][1] = -INFINITY;
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = L.wn * 64 + ni * 8 + L.tg * 2 + e;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int bits = (__float_as_int(score(mi, ni, 2 * h + e, col)) & ~0x7F) | col;
-          rmax[mi][h] = fmaxf(rmax[mi][h], __int_as_float(bits));
-        }
-    }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = rmax[mi][h];
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      if (L.tg == 0) red[L.wn][L.wm * 32 + mi * 16 + h * 8 + L.g] = v;
-    }
-  __syncthreads();
-}
 
 // Packed int32 max per row: (score << 7) | col, an integer max.
 template <class ScoreFn>

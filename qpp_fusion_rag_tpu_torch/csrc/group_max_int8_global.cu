@@ -36,7 +36,7 @@ __global__ void __launch_bounds__(kThreads) group_max_int8_global_kernel(
   const int G = (N + kBN - 1) / kBN;
 
   int acc[2][8][4];
-  tile_loop<S8>(acc, As, Bs, q, m0, M, c, n0, N, D, D, L);
+  tile_loop<S8>(acc, As, Bs, q, m0, M, c, n0, N, D, L);
   packed_imax_rows(
       [&](int mi, int ni, int e4, int col) {
         return n0 + col < n_real ? acc[mi][ni][e4] : -(1 << 24);

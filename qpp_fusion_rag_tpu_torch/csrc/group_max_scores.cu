@@ -44,7 +44,7 @@ __global__ void __launch_bounds__(kThreads) group_max_scores_kernel(
     const long long n0 =
         (static_cast<long long>(o / g2) * g + s * g2 + o % g2) * kBN;
     float acc[2][8][4];
-    tile_loop<Bf16>(acc, As, Bs, q, m0, M, c, n0, N, D, D * 2, L);
+    tile_loop<Bf16>(acc, As, Bs, q, m0, M, c, n0, N, D * 2, L);
     argmax_rows(
         [&](int mi, int ni, int e4, int col) {
           return n0 + col < n_real ? acc[mi][ni][e4] : -INFINITY;

@@ -1,5 +1,6 @@
-"""Row-wise bitonic kernels over int32 keys, one CTA per row in shared
-memory, all three on the network of csrc/bitonic_common.cuh:
+"""Row-wise bitonic kernels over int32 keys in shared memory (one CTA per
+row, or a cluster of two CTAs for rows of more than 32,768 keys), all three
+on the network of csrc/bitonic_common.cuh:
 
   K2 bitonic_segsum_rows (csrc/bitonic_segsum.cu): sort + exact run sums;
   K4 bitonic_topp_rows   (csrc/bitonic_topp.cu):   exact top-bs block;
@@ -8,7 +9,9 @@ memory, all three on the network of csrc/bitonic_common.cuh:
 Counterparts of the functions of the same names in
 qpp_fusion_rag_tpu/ops/pallas/bitonic.py, without the TPU's shape rules (M
 a power of two and a multiple of 1024, B a multiple of 8): rows of any
-length up to MAX_ROW keys are padded inside shared memory.
+length up to MAX_ROW = 65,536 keys are padded inside shared memory. Longer
+rows are refused on the card; ops/sparse.py sorts them with torch.sort, as
+the JAX package takes lax.sort for them.
 
 K2 keeps bitonic_segsum_rows' contract:
   -> (sums [B, M] int32: each doc run's total of (q8 + plus_one) at the
@@ -28,7 +31,7 @@ import torch
 from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES, _build
 from qpp_fusion_rag_tpu_torch.ops.segment import segmented_sums_presorted_i32
 
-MAX_ROW = 32768   # a row must fit one CTA's shared memory (128 KB + pad)
+MAX_ROW = 65536   # a row must fit two CTAs' shared memory (2 x 128 KB + pad)
 
 
 def _padded_len(M: int) -> int:
@@ -52,14 +55,14 @@ def _check_keys(keys: torch.Tensor, start_block: int) -> None:
 
 def _cuda_row_fits(keys: torch.Tensor, kernel: str) -> None:
     """The device rule of every CUDA wrapper here: a CUDA tensor whose
-    padded row fits one CTA's shared memory."""
+    padded row fits the shared memory of a two-CTA cluster."""
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
     M = keys.shape[1]
     if _padded_len(M) > MAX_ROW:
         raise ValueError(
-            f"row length M={M} exceeds the kernel's one-CTA shared-memory row "
-            f"({MAX_ROW} keys); longer rows are ROADMAP work (Queue 2, {kernel})")
+            f"row length M={M} exceeds {kernel}'s shared-memory row ({MAX_ROW} keys "
+            "over a cluster of two CTAs); sort longer rows with torch.sort")
 
 
 def bitonic_segsum_rows_plain(keys: torch.Tensor, plus_one: bool = False):
@@ -80,7 +83,7 @@ def bitonic_segsum_rows(keys: torch.Tensor, start_block: int = 2,
     the Pallas kernel's scan span; both versions here sum runs of any
     length exactly, so it is validated and otherwise not needed.
     CPU tensors take the plain version; CUDA tensors launch K2
-    (M <= 32768 per row)."""
+    (M <= 65536 per row)."""
     _check_keys(keys, start_block)
     if max_run is not None and max_run < 1:
         raise ValueError(f"max_run={max_run} must be >= 1")
@@ -112,7 +115,7 @@ def bitonic_sort_rows(keys: torch.Tensor, start_block: int = 2) -> torch.Tensor:
     start_block > 2 promises aligned start_block/2 blocks sorted alternately
     ascending/descending; the kernel then skips the rounds before it.
     CPU tensors take the plain version (torch.sort); CUDA tensors launch K5
-    (M <= 32768 per row)."""
+    (M <= 65536 per row)."""
     _check_keys(keys, start_block)
     if keys.device.type == "cpu":
         return bitonic_sort_rows_plain(keys)
@@ -140,7 +143,7 @@ def bitonic_topp_rows(keys: torch.Tensor, bs: int = 1024,
     [B, bs] block sorted ascending: element [bs - pool - 1] is the true
     (pool+1)-th value. bs must be a power of two >= 1024 with 2*bs <= M (the
     JAX wrapper's rule); start_block as in bitonic_sort_rows, at most 2*bs.
-    CPU tensors take the plain version; CUDA tensors launch K4 (M <= 32768
+    CPU tensors take the plain version; CUDA tensors launch K4 (M <= 65536
     per row). Both return the same block bit for bit: it is a function of
     the keys alone."""
     _check_keys(keys, start_block)

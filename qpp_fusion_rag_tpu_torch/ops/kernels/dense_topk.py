@@ -9,6 +9,12 @@
   K9 group_max_packed_int8_global (csrc/group_max_int8_global.cu): int8,
                                   one global scale, packed int32 max.
 
+K1 and K7 run on the TMA + wgmma main loop of csrc/dense_wgmma.cuh (a
+persistent grid, 128 x 256 output tiles); K8, K9 and K10
+(streaming_topk.py) on the mma.sync main loop of csrc/dense_common.cuh.
+TMA and the 16-byte loads of both loops need rows of a multiple of 16
+bytes and 16-byte aligned operands (_check_cuda_rows).
+
 Counterpart of qpp_fusion_rag_tpu/ops/pallas/dense_topk.py. int8 corpora
 are row-major [N, D] (the one layout that serves the kernels and the
 rerank gather) where the TPU kernels read a [D, N] copy. The TPU wrappers

@@ -11,7 +11,9 @@ Device half (torch): each query term reads a `p_cap`-wide window of its
 packed (doc << 8 | uint8 impact) postings (K3), requantizes every
 contribution to 8 bits against the query's largest term weight, packs it
 back into the low byte of the doc key, then sorts the keys and sums each
-doc's run exactly in int32 (K2); a top-k over the run sums follows. The
+doc's run exactly in int32 (K2, for rows of up to 65,536 keys; longer rows
+take torch.sort and segmented sums, the JAX package's route for them); a
+top-k over the run sums follows. The
 rank-safe mode instead pools the top candidates by a second bitonic pass
 over (sum << 16 | position) keys (K4, or K5 when the pool is most of the
 row) and rescores every pooled doc against its full doc vector (K6).
@@ -29,13 +31,14 @@ import numpy as np
 import torch
 
 from qpp_fusion_rag_tpu_torch.ops.kernels.bitonic import (
+    MAX_ROW,
     bitonic_segsum_rows,
     bitonic_sort_rows,
     bitonic_topp_rows,
 )
 from qpp_fusion_rag_tpu_torch.ops.kernels.row_gather import rescore_match
 from qpp_fusion_rag_tpu_torch.ops.kernels.window_gather import gather_windows
-from qpp_fusion_rag_tpu_torch.ops.segment import topk_first
+from qpp_fusion_rag_tpu_torch.ops.segment import segmented_sums_presorted_i32, topk_first
 
 ALIGN = 1024          # array-length granule of the shared packed layout
 _MAX_DMA_CAP = 4096   # largest p_cap the packed layout is padded for
@@ -350,20 +353,39 @@ def _q8_keys(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
     return keys, wmax_col, start_block
 
 
+def _sort_row_sums(keys):
+    """Sort + run sums for rows longer than K2 takes: the JAX package's
+    route for every row it does not give its bitonic kernel (lax.sort, then
+    segmented sums). The descending windows' INT32_MIN pad folds into
+    INT32_MAX first, as there. -> (sums, sids) as bitonic_segsum_rows."""
+    skeys = torch.sort(torch.where(keys == INT32_MIN, INT32_MAX, keys), dim=-1).values
+    sids = (skeys >> 8) & 0xFFFFFF
+    return segmented_sums_presorted_i32(sids, skeys & 0xFF), sids
+
+
 def _q8_row_sums(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
                  presorted: bool = False, plus_one: bool = False,
                  return_win_min: bool = False):
     """Windowed q8 core. -> (sums [B, M] int32 run totals at run-last
     positions, -1 elsewhere and on pads; sids [B, M] doc ids (>= 0x7FFFFF:
-    pad); wmax_col [B, 1] f32 dequant scale)."""
+    pad); wmax_col [B, 1] f32 dequant scale).
+
+    The route is decided by the row length M = Tq * cap alone, as the JAX
+    package decides it: rows of up to MAX_ROW (65,536) keys go to K2
+    (bitonic_segsum_rows: the kernel for a CUDA tensor, its plain version
+    for a CPU one), longer rows to _sort_row_sums, on either device. It is
+    not a fallback: a CUDA row of <= 65,536 keys launches K2 or raises."""
     if plus_one or return_win_min:
         raise NotImplementedError(
             "plus_one / return_win_min serve the certified q8c scorer, which "
             "is not ported yet (ROADMAP Queue 1, certified mode)")
     keys, wmax_col, start_block = _q8_keys(
         packed, offsets, term_scales, q_terms, q_weights, p_cap, presorted)
-    sums, sids = bitonic_segsum_rows(keys, start_block=start_block,
-                                     max_run=q_terms.shape[1])
+    if keys.shape[1] <= MAX_ROW:
+        sums, sids = bitonic_segsum_rows(keys, start_block=start_block,
+                                         max_run=q_terms.shape[1])
+    else:
+        sums, sids = _sort_row_sums(keys)
     sums = torch.where(sids >= SID_INVALID, -1, sums)
     return sums, sids, wmax_col
 

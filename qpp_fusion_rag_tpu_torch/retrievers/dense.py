@@ -42,7 +42,9 @@ class DenseIndex:
     default_rng(seed).permutation, the JAX package's exact permutation):
     the group-max reductions keep one candidate per 128-row block, so a
     corpus ordered by topic would lose recall. The docno list permutes with
-    the rows. `device` defaults to the GPU when there is one."""
+    the rows. `device` defaults to "cuda": on a machine without a card the
+    first search raises, as every other entry point of the port does; pass
+    device="cpu" for the plain versions."""
 
     def __init__(self, embeddings: np.ndarray, docnos: List[str],
                  normalize: bool = False, shuffle: bool = True, seed: int = 0,
@@ -61,8 +63,7 @@ class DenseIndex:
         self.docnos = docnos
         self.corpus_dtype = corpus_dtype
         self.chunk_docs = chunk_docs
-        self.device = torch.device(
-            device if device is not None else "cuda" if torch.cuda.is_available() else "cpu")
+        self.device = torch.device("cuda" if device is None else device)
         self._matrix = None
         self._int8 = None
 

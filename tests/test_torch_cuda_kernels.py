@@ -115,8 +115,63 @@ def test_k2_random_rows_match_plain(cuda, B, M):
 
 
 def test_k2_refuses_rows_beyond_shared_memory(cuda):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        bitonic.bitonic_segsum_rows(torch.zeros((1, 65536), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="torch.sort"):
+        bitonic.bitonic_segsum_rows(torch.zeros((1, 65537), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("B,M,start_block,plus_one", [
+    (3, 65536, 4096, False), (2, 65536, 4096, True), (3, 65536, 2, False),
+    (3, 40000, 2, True), (2, 32769, 2, False)])
+def test_k2_two_cta_rows_match_plain(cuda, B, M, start_block, plus_one):
+    """Rows of more than 32,768 keys: a cluster of two CTAs per row. Runs
+    straddle the two halves (docs drawn from a few hundred ids, so every
+    run is ~100 keys long), pads of both kinds included."""
+    rng = np.random.default_rng(M + start_block)
+    if start_block > 2:
+        keys = _keys(B, M, start_block // 2, rng)
+    else:
+        keys = ((rng.integers(0, 600, (B, M)) << 8) | rng.integers(0, 256, (B, M)))
+        keys[:, : M // 9] = INT32_MIN
+        keys = keys.astype(np.int32)
+    keys = torch.as_tensor(keys)
+    sums, sids = _counted("bitonic_segsum_rows", lambda: bitonic.bitonic_segsum_rows(
+        keys.to(cuda), start_block=start_block, plus_one=plus_one))
+    r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys, plus_one)
+    assert torch.equal(sids.cpu(), r_sids)
+    assert torch.equal(sums.cpu(), r_sums)
+
+
+def test_k2_one_run_across_both_halves(cuda):
+    """One doc over the whole row: the upper half's carry is the sum of the
+    lower half's 32,768 keys."""
+    rng = np.random.default_rng(5)
+    keys = torch.as_tensor(((7 << 8) | rng.integers(0, 256, (2, 65536))).astype(np.int32))
+    sums, sids = bitonic.bitonic_segsum_rows(keys.to(cuda))
+    r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys)
+    assert torch.equal(sids.cpu(), r_sids)
+    assert torch.equal(sums.cpu(), r_sums)
+    assert int(sums[0, -1]) == int(keys[0].bitwise_and(0xFF).sum())
+
+
+def test_q8_rows_beyond_65536_keys_take_the_sort_route(cuda):
+    """sparse_score_topk_q8 at M = 32 x 2048 = 65,536 launches K2; at
+    M = 64 x 2048 = 131,072 it launches no K2 (torch.sort + segmented sums).
+    Both equal the CPU run."""
+    from qpp_fusion_rag_tpu_torch.data.synthetic import zipf_bm25_csr, zipf_queries
+    from qpp_fusion_rag_tpu_torch.ops import sparse
+
+    bo, bd, bw, _ = zipf_bm25_csr(8000, vocab_size=400, avg_doc_len=60.0, seed=9)
+    packed, offsets, scales = sparse.pack_postings_presorted(bd, bw, bo, cap=2048)
+    for tq, k2 in ((32, 1), (64, 0)):
+        qt, qw = zipf_queries(bo, 4, n_terms=tq, seed=tq)
+        args = [torch.as_tensor(x) for x in (packed, offsets.astype(np.int32), scales, qt, qw)]
+        before = LAUNCHES["bitonic_segsum_rows"]
+        got = sparse.sparse_score_topk_q8(*[a.to(cuda) for a in args], k=100, p_cap=2048,
+                                          presorted=True)
+        torch.cuda.synchronize()
+        assert LAUNCHES["bitonic_segsum_rows"] - before == k2
+        ref = sparse.sparse_score_topk_q8(*args, k=100, p_cap=2048, presorted=True)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
 
 
 # ------------------------------------------------------------ K4, K5 ------
@@ -154,11 +209,43 @@ def test_k4_matches_plain(cuda, B, M, bs):
 
 
 def test_k4_k5_refuse_rows_beyond_shared_memory(cuda):
-    keys = torch.zeros((1, 32769), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    keys = torch.zeros((1, 65537), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="torch.sort"):
         bitonic.bitonic_sort_rows(keys)
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torch.sort"):
         bitonic.bitonic_topp_rows(keys, bs=1024)
+
+
+@pytest.mark.parametrize("B,M", [(3, 65536), (4, 40000), (2, 32769)])
+def test_k5_two_cta_rows_match_plain(cuda, B, M):
+    keys = _pool_keys(B, M, np.random.default_rng(M + 7))
+    out = _counted("bitonic_sort_rows", lambda: bitonic.bitonic_sort_rows(keys.to(cuda)))
+    assert torch.equal(out.cpu(), bitonic.bitonic_sort_rows_plain(keys))
+
+
+@pytest.mark.parametrize("cap", [2048, 32768])
+def test_k5_two_cta_presorted_blocks_match_plain(cuda, cap):
+    """start_block 4096, and 65,536: two presorted halves go straight to the
+    cross-CTA stage."""
+    keys = torch.as_tensor(_keys(2, 65536, cap, np.random.default_rng(cap)))
+    out = _counted("bitonic_sort_rows", lambda: bitonic.bitonic_sort_rows(
+        keys.to(cuda), start_block=2 * cap))
+    assert torch.equal(out.cpu(), bitonic.bitonic_sort_rows_plain(keys))
+
+
+@pytest.mark.parametrize("B,M,bs", [(3, 65536, 1024), (2, 65536, 32768), (3, 65536, 4096),
+                                    (4, 40000, 16384), (2, 40000, 2048), (2, 32769, 1024)])
+def test_k4_two_cta_rows_match_plain(cuda, B, M, bs):
+    keys = _pool_keys(B, M, np.random.default_rng(M + bs + 1))
+    out = _counted("bitonic_topp_rows", lambda: bitonic.bitonic_topp_rows(keys.to(cuda), bs=bs))
+    assert torch.equal(out.cpu(), bitonic.bitonic_topp_rows_plain(keys, bs))
+
+
+def test_k4_two_cta_presorted_matches_plain(cuda):
+    keys = torch.as_tensor(_keys(2, 65536, 2048, np.random.default_rng(11)))
+    out = _counted("bitonic_topp_rows", lambda: bitonic.bitonic_topp_rows(
+        keys.to(cuda), bs=2048, start_block=4096))
+    assert torch.equal(out.cpu(), bitonic.bitonic_topp_rows_plain(keys, 2048))
 
 
 # ---------------------------------------------------------------- K6 ------
@@ -221,6 +308,23 @@ def test_k1_matches_plain_bits(cuda, M, N, D, n_real):
     assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
 
 
+@pytest.mark.parametrize("M,N,D", [(200, 5000, 768), (200, 4104, 96), (129, 2056, 256),
+                                   (1024, 65536, 768)])
+def test_k1_wgmma_ragged_matches_plain_bits(cuda, M, N, D):
+    """The TMA + wgmma loop at ragged M (not a multiple of 128), ragged N
+    (N % 256 != 0) and D below one 128-byte stage: bit-equal, any input."""
+    g = torch.Generator().manual_seed(M * N + D)
+    q_int, _ = dense_topk.quantize_rows(torch.randn(M, D, generator=g))
+    rows, scale = dense_topk.quantize_rows(torch.randn(N, D, generator=g))
+    scale = scale[:, 0].contiguous()
+    rows[N - 3] = 0
+    out = _counted("group_max_packed_int8", lambda: dense_topk.group_max_packed_int8(
+        q_int.to(cuda), rows.to(cuda), scale.to(cuda), n_real=N - 1))
+    ref = dense_topk.group_max_packed_int8_plain(q_int.to(cuda), rows.to(cuda), scale.to(cuda),
+                                                 N - 1)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
 def test_dense_topk_int8_matches_cpu(cuda):
     g = torch.Generator().manual_seed(3)
     q = torch.randn(64, 128, generator=g)
@@ -278,6 +382,21 @@ def test_k7_matches_plain_bits(cuda, M, N, D, n_real, transposed):
         q.to(cuda), c_in.to(cuda), n_real=n_real, transposed=transposed))
     ref = dense_topk.group_max_packed_plain(q, c_in, N if n_real is None else n_real,
                                             transposed)
+    assert torch.equal(_bits(out), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("M,N,D", [(200, 5000, 768), (200, 4104, 96), (129, 2056, 256)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_k7_wgmma_ragged_matches_plain_bits(cuda, M, N, D, transposed):
+    """The TMA + wgmma loop at ragged M, ragged N (N % 256 != 0, N % 8 == 0)
+    and D below one 128-byte stage, both layouts: bit-equal on
+    integer-valued inputs."""
+    q, c = _int_bf16((M, D), M + D), _int_bf16((N, D), N + D)
+    c[N - 5] = 0
+    c_in = c.T.contiguous() if transposed else c
+    out = _counted("group_max_packed", lambda: dense_topk.group_max_packed(
+        q.to(cuda), c_in.to(cuda), n_real=N - 2, transposed=transposed))
+    ref = dense_topk.group_max_packed_plain(q, c_in, N - 2, transposed)
     assert torch.equal(_bits(out), ref.view(torch.int32))
 
 

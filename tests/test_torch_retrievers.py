@@ -120,3 +120,14 @@ def test_dense_index_refuses_mesh_and_unknown_engine(corpus):
     assert idx.device_matrix().dtype == torch.bfloat16
     rows, scale = idx.device_int8()
     assert rows.dtype == torch.int8 and scale.shape == (N,)
+
+
+def test_dense_index_defaults_to_the_card(corpus):
+    """No device means the card, never a quiet move to the CPU: without one,
+    the first search raises."""
+    emb, docnos, q = corpus
+    idx = DenseIndex(emb, docnos)
+    assert idx.device.type == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            idx.search(q, k=K)

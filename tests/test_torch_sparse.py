@@ -110,6 +110,54 @@ def test_q8_row_sums_refuses_unported_flags():
             TSP._q8_row_sums(*args, p_cap=64, presorted=True, **{flag: True})
 
 
+# ------------------------------------- long rows: M = Tq * p_cap > 32,768 --
+
+@pytest.fixture(scope="module")
+def long_rows():
+    bo, bd, bw, _ = zipf_bm25_csr(8000, vocab_size=400, avg_doc_len=60.0, seed=9)
+    packed, offsets, scales = TSP.pack_postings_presorted(bd, bw, bo, cap=2048)
+    return bo, packed, offsets.astype(np.int32), scales
+
+
+@pytest.mark.parametrize("tq", [32, 64])
+def test_sparse_score_topk_q8_long_rows_match_jax(long_rows, tq):
+    """Rows of Tq * p_cap = 65,536 keys (a SPLADE query of 32 terms at p_cap
+    2048: K2 on a cluster of two CTAs on the card) and 131,072 keys (the
+    sort route): ids and scores equal to JAX's default CPU route."""
+    bo, packed, offsets, scales = long_rows
+    qt, qw = _queries(bo, 4, tq, seed=tq)
+    args = (packed, offsets, scales, qt, qw)
+    js, ji = JSP.sparse_score_topk_q8(*map(jnp.asarray, args), k=100, p_cap=2048,
+                                      presorted=True)
+    ts, ti = TSP.sparse_score_topk_q8(*map(torch.as_tensor, args), k=100, p_cap=2048,
+                                      presorted=True)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (ti.numpy()[0] >= 0).all() and (ti.numpy()[2] == -1).all()
+
+
+def test_q8_row_sums_route_by_row_length(long_rows, monkeypatch):
+    """K2 (bitonic_segsum_rows) serves rows of up to 65,536 keys and never a
+    longer one, which takes torch.sort + segmented sums; both routes give
+    the same run sums on real positions."""
+    bo, packed, offsets, scales = long_rows
+    seen = []
+    k2 = TSP.bitonic_segsum_rows
+    monkeypatch.setattr(TSP, "bitonic_segsum_rows",
+                        lambda keys, **kw: seen.append(keys.shape[1]) or k2(keys, **kw))
+    for tq in (16, 32, 33, 64):
+        qt, qw = _queries(bo, 3, tq, seed=tq + 1)
+        args = tuple(map(torch.as_tensor, (packed, offsets, scales, qt, qw)))
+        sums, sids, _ = TSP._q8_row_sums(*args, p_cap=2048, presorted=True)
+        keys = TSP._q8_keys(*args, 2048, presorted=True)[0]
+        r_sums, r_sids = TSP._sort_row_sums(keys)
+        for b in range(3):
+            got = sorted(zip(sids[b][sums[b] >= 0].tolist(), sums[b][sums[b] >= 0].tolist()))
+            real = (r_sums[b] >= 0) & (r_sids[b] < TSP.SID_INVALID)
+            assert got == sorted(zip(r_sids[b][real].tolist(), r_sums[b][real].tolist()))
+    assert seen == [16 * 2048, 32 * 2048]
+
+
 # ------------------------------------------------ presorted-cap check -----
 
 def _presorted_offsets(cap=64):
