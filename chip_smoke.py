@@ -17,8 +17,10 @@ computes the same function, that call's time), then drives the ensemble
 step for 12 steps (4 passes over three batches of 1024 queries) in q8 mode
 and 12 in rank-safe q8r mode (256 sparse candidates, a 128-doc dense pool),
 one q8r BM25 call at 8192 candidates (the pool's full-sort branch), and one
-q8 and one q8r SPLADE call of 32-term queries (rows of 65,536 keys: K2 and
-K4 on two-CTA clusters). The dense flagship follows (R = 5 views, 5,120
+q8 and one q8r SPLADE call of 32-term queries (rows of 65,536 keys: K2 on
+four-CTA clusters), with K2 and K4 then timed alone at those rows. The
+registers and spill bytes that ptxas reported for the bitonic kernels (K2,
+K4, K5) are printed after the build. The dense flagship follows (R = 5 views, 5,120
 scoring rows per batch): K7-K10 against their plain versions on the full
 corpus (K7 in both layouts; K1 again at the 5,120 rows), fused_retrieval_step for 12 steps on the int8
 route (K1) and 12 on the bf16 route (K7), learned-fusion calls, one
@@ -40,6 +42,7 @@ and prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -106,6 +109,70 @@ def bound(nbytes: float, ops: float, kind: str):
     rate of their type. -> (ms, "bytes" or "operations")."""
     tb, to = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[kind] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ptxas_summary(build_log: str):
+    """Registers and spill bytes that ptxas reported (-Xptxas -v) for each
+    kernel of the bitonic sources (K2, K4, K5). -> {kernel<template args>:
+    {"source", "registers", "stack", "spill_stores", "spill_loads"}}."""
+    sources = ("bitonic_segsum.cu", "bitonic_topp.cu", "bitonic_sort.cu")
+    out, src, fn = {}, None, None
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            src, fn = line[3:].strip(), None
+        elif m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line):
+            fn = m.group(1)
+        if src not in sources or fn is None:
+            continue
+        name = re.search(r"([a-z_]+_kernel)((?:ILi\d+E(?:Li\d+E)*E)?)", fn)
+        if name is None:
+            continue
+        args = re.findall(r"Li(\d+)E", name.group(2))
+        key = name.group(1) + (f"<{', '.join(args)}>" if args else "")
+        entry = out.setdefault(key, {"source": src})
+        if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line):
+            entry.update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        elif m := re.search(r"Used (\d+) registers", line):
+            entry["registers"] = int(m[1])
+    return out
+
+
+def long_row_kernels(res, keys, start_block, pkeys, tq):
+    """K2 and K4 alone at rows of 65,536 keys (the SPLADE Tq 32 call's keys
+    and pool keys), against their plain versions, bit for bit; their times,
+    bounds and (K4) torch.topk's time go into their entries of `res` as
+    *_65536."""
+    from qpp_fusion_rag_tpu_torch.ops import sparse as S
+    from qpp_fusion_rag_tpu_torch.ops.kernels import bitonic
+
+    B, M = keys.shape
+    sums, sids = bitonic.bitonic_segsum_rows(keys, start_block=start_block, max_run=tq)
+    r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys)
+    real = r_sids < S.SID_INVALID
+    if not torch.equal(sids, r_sids) or not torch.equal(sums[real], r_sums[real]):
+        raise AssertionError(f"K2 bitonic_segsum_rows != plain at {tuple(keys.shape)}")
+    del sums, sids, r_sums, r_sids, real
+    r = res["bitonic_segsum_rows"]
+    r["ms_65536"] = median_ms(lambda: bitonic.bitonic_segsum_rows(
+        keys, start_block=start_block, max_run=tq), 10)
+    r["plain_ms_65536"] = median_ms(lambda: bitonic.bitonic_segsum_rows_plain(keys), 3)
+    r["bound_ms_65536"] = bound(12 * B * M, 0, "int8")[0]
+    got = bitonic.bitonic_topp_rows(pkeys, bs=1024)
+    if not torch.equal(got, bitonic.bitonic_topp_rows_plain(pkeys, 1024)):
+        raise AssertionError(f"K4 bitonic_topp_rows != plain at {tuple(pkeys.shape)}")
+    r4 = res["bitonic_topp_rows"]
+    r4["ms_65536"] = median_ms(lambda: bitonic.bitonic_topp_rows(pkeys, bs=1024), 10)
+    r4["plain_ms_65536"] = median_ms(lambda: bitonic.bitonic_topp_rows_plain(pkeys, 1024), 3)
+    r4["library_ms_65536"] = median_ms(lambda: torch.topk(pkeys, 1024, dim=-1), 10)
+    r4["bound_ms_65536"] = bound(4 * B * (M + 1024), 0, "int8")[0]
+    log(f"  K2 alone at {tuple(keys.shape)} start_block={start_block}: equal to plain; kernel "
+        f"{r['ms_65536']:.3f} ms, plain {r['plain_ms_65536']:.3f} ms, bound "
+        f"{r['bound_ms_65536']:.4f} ms (bytes)")
+    log(f"  K4 alone at {tuple(pkeys.shape)} bs=1024: equal to plain "
+        f"({int((pkeys >= 0).sum())} run keys); kernel {r4['ms_65536']:.3f} ms, plain "
+        f"{r4['plain_ms_65536']:.3f} ms, torch.topk {r4['library_ms_65536']:.3f} ms, bound "
+        f"{r4['bound_ms_65536']:.4f} ms (bytes)")
 
 
 def host_build(n_docs: int):
@@ -765,6 +832,11 @@ def main() -> None:
     for line in build_log.splitlines():
         if any(k in line for k in ("registers", "spill", "arning")) or line.startswith("=="):
             log(f"    ptxas: {line.strip()}")
+    bitonic_ptxas = ptxas_summary(build_log)
+    log("    ptxas, bitonic kernels (registers, spill stores / loads, stack bytes): " + "; ".join(
+        f"{k} [{v['source']}] {v.get('registers')} regs, {v.get('spill_stores')} / "
+        f"{v.get('spill_loads')} spill, {v.get('stack')} stack"
+        for k, v in bitonic_ptxas.items()))
 
     t0 = time.perf_counter()
     h = host_build(N_DOCS)
@@ -824,7 +896,8 @@ def main() -> None:
         raise AssertionError(f"the fallback call did not take the K5 pool: {fb_launches}")
 
     log(f"[7b] long rows: SPLADE queries of {LONG_TQ} terms, M = {LONG_TQ} x {P_CAP} = "
-        f"{LONG_TQ * P_CAP} keys (K2 and K4 on a cluster of two CTAs per row): one "
+        f"{LONG_TQ * P_CAP} keys (K2 on a cluster of four CTAs per row, K4 on its warp "
+        f"route): one "
         f"sparse_score_topk_q8 and one q8r call of {BATCH} queries")
     lt, lw = long_q
     splade_rs = view_args(idx_rs, "splade", ("packed", "offsets", "scales", "doc_packed",
@@ -850,6 +923,11 @@ def main() -> None:
             raise AssertionError(f"the long-row {mode} call never launched {missing}")
         if int((long_out[mode][1] >= 0).sum()) == 0:
             raise AssertionError(f"the long-row {mode} call found no documents")
+    packed, offsets, scales = view_args(idx_rs, "splade")
+    long_keys, _, long_sb = S._q8_keys(packed, offsets, scales, lt, lw, P_CAP, presorted=True)
+    long_sums, _, _ = S._q8_row_sums(packed, offsets, scales, lt, lw, P_CAP, presorted=True)
+    long_row_kernels(res, long_keys, long_sb, S._pool_keys(long_sums), LONG_TQ)
+    del long_keys, long_sums
 
     log(f"[8] cross-check of the kernel views for {CROSS_Q} queries on CPU copies")
     for view, terms, qw in (("bm25", bt, bq), ("splade", st, sq)):
@@ -1007,11 +1085,12 @@ def main() -> None:
              **flag_launches, **entry}
     kernels = []
     for name, (source, replaces, main_path) in meta.items():
+        ptxas = {k: v for k, v in bitonic_ptxas.items() if source.endswith(v["source"])}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": paths[main_path].get(name, 0),
                         "path": main_path,
                         "launches_by_path": {p: c.get(name, 0) for p, c in paths.items()},
-                        **res[name]})
+                        **res[name], **({"ptxas": ptxas} if ptxas else {})})
     for name, sec in phase_s.items():
         log(f"  {name}: {sec:.1f} s")
     steady = {"q8": q8_ms, "q8r": q8r_ms, **flag_ms}

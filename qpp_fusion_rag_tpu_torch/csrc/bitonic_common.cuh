@@ -1,7 +1,9 @@
-// Shared-memory bitonic compare-exchange network, shared by K2
-// (bitonic_segsum.cu), K4 (bitonic_topp.cu) and K5 (bitonic_sort.cu), as the
-// TPU kernels share _bitonic_network (ops/pallas/bitonic.py): one copy, so a
-// direction or start_block fix can never apply to only one of them.
+// Shared-memory bitonic compare-exchange network of K5 (bitonic_sort.cu)
+// and of K4's route for bs > 2048 (bitonic_topp.cu), as the TPU kernels
+// share _bitonic_network (ops/pallas/bitonic.py). K2 and K4's route for
+// bs <= 2048 run the register network of bitonic_regs.cuh, with the same
+// direction and start_block rules, and take the padding and start_block
+// rules and the launch (launch_clusters) from here.
 //
 // A row of M int32 keys is padded by the caller's sentinel to Mp = the next
 // power of two >= M keys. Key i sits at slot(i): one pad word per 32 keys,
@@ -144,13 +146,12 @@ inline bool valid_start_block(int start_block, int Mp) {
   return start_block >= 2 && start_block <= Mp && (start_block & (start_block - 1)) == 0;
 }
 
-// Host side: launch `kernel` over B rows of padded length Mp: one CTA per
-// row, or a cluster of two per row when Mp > kHalf. -> a cudaError_t.
+// Host side: launch `kernel` over B rows, `halves` CTAs of `threads` threads
+// and `smem` bytes of dynamic shared memory per row (a cluster of two CTAs
+// when halves == 2). -> a cudaError_t.
 template <class... Params, class... Args>
-inline cudaError_t launch_rows(void (*kernel)(Params...), int B, int Mp, cudaStream_t stream,
-                               Args... args) {
-  const int halves = Mp > kHalf ? 2 : 1;
-  const size_t smem = smem_bytes(Mp / halves);
+inline cudaError_t launch_clusters(void (*kernel)(Params...), int B, int halves, int threads,
+                                   size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -161,13 +162,23 @@ inline cudaError_t launch_rows(void (*kernel)(Params...), int B, int Mp, cudaStr
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B) * halves);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Host side: launch `kernel` of the shared-memory network over B rows of
+// padded length Mp: one CTA per row, or a cluster of two per row when
+// Mp > kHalf.
+template <class... Params, class... Args>
+inline cudaError_t launch_rows(void (*kernel)(Params...), int B, int Mp, cudaStream_t stream,
+                               Args... args) {
+  const int halves = Mp > kHalf ? 2 : 1;
+  return launch_clusters(kernel, B, halves, kThreads, smem_bytes(Mp / halves), stream, args...);
 }
 
 }  // namespace qfr_bitonic

@@ -1,10 +1,14 @@
-"""Row-wise bitonic kernels over int32 keys in shared memory (one CTA per
-row, or a cluster of two CTAs for rows of more than 32,768 keys), all three
-on the network of csrc/bitonic_common.cuh:
+"""Row-wise bitonic kernels over int32 keys (one CTA per row, or a cluster
+of two CTAs for rows of more than 32,768 keys where the row is held on
+chip):
 
-  K2 bitonic_segsum_rows (csrc/bitonic_segsum.cu): sort + exact run sums;
-  K4 bitonic_topp_rows   (csrc/bitonic_topp.cu):   exact top-bs block;
-  K5 bitonic_sort_rows   (csrc/bitonic_sort.cu):   ascending sort.
+  K2 bitonic_segsum_rows (csrc/bitonic_segsum.cu): sort + exact run sums,
+     the row in registers (the network of csrc/bitonic_regs.cuh);
+  K4 bitonic_topp_rows   (csrc/bitonic_topp.cu):   exact top-bs block: a
+     warp-streaming tournament in registers at bs 1024 and 2048, the
+     shared-memory tournament of csrc/bitonic_common.cuh above;
+  K5 bitonic_sort_rows   (csrc/bitonic_sort.cu):   ascending sort, on the
+     shared-memory network of csrc/bitonic_common.cuh.
 
 Counterparts of the functions of the same names in
 qpp_fusion_rag_tpu/ops/pallas/bitonic.py, without the TPU's shape rules (M

@@ -99,7 +99,13 @@ def test_k2_presorted_matches_plain(cuda, B, M, cap, plus_one):
     assert torch.equal(sums.cpu(), r_sums)       # exact everywhere, pads included
 
 
-@pytest.mark.parametrize("B,M", [(8, 1024), (5, 1000), (2, 32768), (1, 3)])
+@pytest.mark.parametrize("B,M", [
+    (8, 1024), (5, 1000), (2, 32768), (1, 3),
+    # just below and above each CTA size of the register network (32 keys a
+    # thread): rows up to 1024 keys take 32 threads, 1025-2048 take 64, ...,
+    # 8193-16384 take 512, 16385-32768 a cluster of two CTAs of 512
+    (3, 1023), (3, 1025), (3, 2047), (3, 2049), (2, 4095), (2, 4097), (2, 8191), (2, 8193),
+    (2, 16383), (2, 16385), (2, 32767)])
 def test_k2_random_rows_match_plain(cuda, B, M):
     """Unsorted rows (start_block 2) with long pad runs and repeated docs,
     including row lengths that are no power of two."""
@@ -108,6 +114,43 @@ def test_k2_random_rows_match_plain(cuda, B, M):
     keys[:, : M // 5] = INT32_MAX
     keys[:, -(M // 7):] = INT32_MIN
     keys = torch.as_tensor(keys.astype(np.int32))
+    sums, sids = _counted("bitonic_segsum_rows", lambda: bitonic.bitonic_segsum_rows(keys.to(cuda)))
+    r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys)
+    assert torch.equal(sids.cpu(), r_sids)
+    assert torch.equal(sums.cpu(), r_sums)
+
+
+def _pattern(name, B, M, rng):
+    """Rows that break register layouts: every key equal, every key -1, fewer
+    run keys than a top-bs block (300), strictly descending, both pad
+    sentinels."""
+    if name == "equal":
+        return torch.full((B, M), (5 << 16) | 7, dtype=torch.int32)
+    if name == "minus_one":
+        return torch.full((B, M), -1, dtype=torch.int32)
+    if name == "few_runs":
+        keys = np.full((B, M), -1, np.int64)
+        for b in range(B):
+            pos = rng.choice(M, 300, replace=False)
+            keys[b, pos] = (rng.integers(0, 60, 300) << 16) | pos
+        return torch.as_tensor(keys.astype(np.int32))
+    if name == "descending":
+        return torch.as_tensor((np.arange(M, 0, -1)[None] * 1000 + np.arange(B)[:, None])
+                               .astype(np.int32))
+    assert name == "pads"
+    return torch.as_tensor(np.where(rng.random((B, M)) < 0.5, INT32_MIN, INT32_MAX)
+                           .astype(np.int32))
+
+
+PATTERNS = ("equal", "minus_one", "few_runs", "descending", "pads")
+
+
+@pytest.mark.parametrize("M", [16384, 40000])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_k2_register_layout_cases_match_plain(cuda, pattern, M):
+    """16,384 keys: one CTA; 40,000: a cluster of four, where one run
+    ("equal", "minus_one") spans every part."""
+    keys = _pattern(pattern, 2, M, np.random.default_rng(M))
     sums, sids = _counted("bitonic_segsum_rows", lambda: bitonic.bitonic_segsum_rows(keys.to(cuda)))
     r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys)
     assert torch.equal(sids.cpu(), r_sids)
@@ -123,9 +166,10 @@ def test_k2_refuses_rows_beyond_shared_memory(cuda):
     (3, 65536, 4096, False), (2, 65536, 4096, True), (3, 65536, 2, False),
     (3, 40000, 2, True), (2, 32769, 2, False)])
 def test_k2_two_cta_rows_match_plain(cuda, B, M, start_block, plus_one):
-    """Rows of more than 32,768 keys: a cluster of two CTAs per row. Runs
-    straddle the two halves (docs drawn from a few hundred ids, so every
-    run is ~100 keys long), pads of both kinds included."""
+    """Rows of more than 16,384 keys: a cluster of CTAs per row (two up to
+    32,768 keys, four above). Runs straddle the parts (docs drawn from a few
+    hundred ids, so every run is ~100 keys long), pads of both kinds
+    included."""
     rng = np.random.default_rng(M + start_block)
     if start_block > 2:
         keys = _keys(B, M, start_block // 2, rng)
@@ -142,8 +186,8 @@ def test_k2_two_cta_rows_match_plain(cuda, B, M, start_block, plus_one):
 
 
 def test_k2_one_run_across_both_halves(cuda):
-    """One doc over the whole row: the upper half's carry is the sum of the
-    lower half's 32,768 keys."""
+    """One doc over the whole row: each part's carry is the sum of every
+    key in the parts below it (four parts of 16,384 keys)."""
     rng = np.random.default_rng(5)
     keys = torch.as_tensor(((7 << 8) | rng.integers(0, 256, (2, 65536))).astype(np.int32))
     sums, sids = bitonic.bitonic_segsum_rows(keys.to(cuda))
@@ -199,13 +243,37 @@ def test_k5_presorted_blocks_match_plain(cuda, M, cap):
     assert torch.equal(out.cpu(), bitonic.bitonic_sort_rows_plain(keys))
 
 
-@pytest.mark.parametrize("B,M,bs", [(8, 2048, 1024), (6, 16384, 1024), (4, 32768, 1024),
-                                    (3, 32768, 4096), (5, 5000, 2048), (2, 16384, 8192)])
+@pytest.mark.parametrize("B,M,bs", [
+    (8, 2048, 1024), (6, 16384, 1024), (4, 32768, 1024), (3, 32768, 4096), (5, 5000, 2048),
+    (2, 16384, 8192),
+    # the warp route's warps per row double at 16, 32 and 64 bs-blocks: just
+    # below and above, and rows that are no multiple of 4 (scalar loads)
+    (3, 16383, 1024), (3, 16385, 1024), (3, 15359, 1024), (2, 32767, 2048), (2, 32769, 2048),
+    (2, 4099, 2048)])
 def test_k4_matches_plain(cuda, B, M, bs):
     keys = _pool_keys(B, M, np.random.default_rng(M + bs))
     out = _counted("bitonic_topp_rows", lambda: bitonic.bitonic_topp_rows(
         keys.to(cuda), bs=bs))
     assert torch.equal(out.cpu(), bitonic.bitonic_topp_rows_plain(keys, bs))
+
+
+@pytest.mark.parametrize("bs", [1024, 2048, 4096])
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_k4_register_layout_cases_match_plain(cuda, pattern, bs):
+    """bs 1024 and 2048 take the warp route, 4096 the shared-memory one."""
+    keys = _pattern(pattern, 3, 16384, np.random.default_rng(bs))
+    out = _counted("bitonic_topp_rows", lambda: bitonic.bitonic_topp_rows(keys.to(cuda), bs=bs))
+    assert torch.equal(out.cpu(), bitonic.bitonic_topp_rows_plain(keys, bs))
+
+
+def test_k4_row_four_bytes_past_alignment_matches_plain(cuda):
+    """A [B, M] view 4 bytes past a 16-byte boundary with M % 4 == 0: the warp
+    route must not take its 16-byte loads."""
+    keys = _pool_keys(1, 3 * 4096 + 1, np.random.default_rng(3)).reshape(-1)
+    base = keys.to(cuda)
+    view = base[1:].view(3, 4096)
+    out = _counted("bitonic_topp_rows", lambda: bitonic.bitonic_topp_rows(view, bs=1024))
+    assert torch.equal(out.cpu(), bitonic.bitonic_topp_rows_plain(keys[1:].view(3, 4096), 1024))
 
 
 def test_k4_k5_refuse_rows_beyond_shared_memory(cuda):
