@@ -20,10 +20,12 @@ one q8r BM25 call at 8192 candidates (the pool's full-sort branch), and one
 q8 and one q8r SPLADE call of 32-term queries (rows of 65,536 keys: K2 on
 four-CTA clusters), with K2, K4 and K5 then timed alone at those rows. The
 registers and spill bytes that ptxas reported for the bitonic kernels (K2,
-K4, K5) and for K6 are printed after the build. The dense flagship follows (R = 5 views, 5,120
+K4, K5), for K6 and for the wgmma group-max instances (K1, K7, K8 / K10)
+are printed after the build. The dense flagship follows (R = 5 views, 5,120
 scoring rows per batch): K7-K10 against their plain versions on the full
-corpus (K7 in both layouts; K1 again at the 5,120 rows), fused_retrieval_step for 12 steps on the int8
-route (K1) and 12 on the bf16 route (K7), learned-fusion calls, one
+corpus (K7 in both layouts; K1 again at the 5,120 rows; K8 and K10 also at
+D 1024 on a 131,072-doc corpus), fused_retrieval_step for 12 steps on the
+int8 route (K1) and 12 on the bf16 route (K7), learned-fusion calls, one
 full-size call of each dense entry point (K8 at stride 4, K9, K10), and a
 torch.profiler window of 3 steps per main path (device busy share, top
 kernels). Each path checks that every kernel it runs launched, with the
@@ -79,6 +81,7 @@ CORPUS_CHUNK = 262_144
 VIEWS = ("bm25", "splade")
 DEVICE = "cuda"
 LONG_TQ = 32                      # a SPLADE query of 32 terms: M = 32 x 2048 = 65,536 keys
+WIDE_DIM, WIDE_DOCS = 1024, 131_072   # K8 / K10 at the large BGE / e5 encoders' width
 HBM_BPS = 3.35e12                 # H100 SXM device memory, bytes/s
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}   # H100 SXM dense tensor-core peaks
 
@@ -111,11 +114,34 @@ def bound(nbytes: float, ops: float, kind: str):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def template_args(mangled: str, at: int):
+    """The template arguments of a mangled kernel name from position `at`
+    (just after the name): integers (Li<n>E) and types of the kernel's
+    namespace (NS_<len><name>E). -> list of str, empty without a list."""
+    args = []
+    if not mangled.startswith("I", at):
+        return args
+    i = at + 1
+    while i < len(mangled) and mangled[i] != "E":
+        if m := re.match(r"Li(-?\d+)E", mangled[i:]):
+            args.append(m.group(1))
+        elif m := re.match(r"NS_(\d+)", mangled[i:]):
+            n = int(m.group(1))
+            args.append(mangled[i + m.end():i + m.end() + n])
+            m = re.match(r"NS_\d+\w{%d}E" % n, mangled[i:])
+        else:
+            break
+        i += m.end()
+    return args
+
+
 def ptxas_summary(build_log: str):
     """Registers and spill bytes that ptxas reported (-Xptxas -v) for each
-    kernel of the bitonic sources (K2, K4, K5) and of K6. -> {kernel<template
-    args>: {"source", "registers", "stack", "spill_stores", "spill_loads"}}."""
-    sources = ("bitonic_segsum.cu", "bitonic_topp.cu", "bitonic_sort.cu", "rescore_match.cu")
+    kernel of the bitonic sources (K2, K4, K5), of K6 and of the wgmma group
+    max (K1, K7, K8 / K10). -> {kernel<template args>: {"source",
+    "registers", "stack", "spill_stores", "spill_loads"}}."""
+    sources = ("bitonic_segsum.cu", "bitonic_topp.cu", "bitonic_sort.cu", "rescore_match.cu",
+               "dense_topk_int8.cu", "group_max_packed.cu", "group_max_scores.cu")
     out, src, fn = {}, None, None
     for line in build_log.splitlines():
         if line.startswith("== "):
@@ -124,10 +150,10 @@ def ptxas_summary(build_log: str):
             fn = m.group(1)
         if src not in sources or fn is None:
             continue
-        name = re.search(r"([a-z_]+_kernel)((?:ILi\d+E(?:Li\d+E)*E)?)", fn)
+        name = re.search(r"([a-z_]+_kernel)", fn)
         if name is None:
             continue
-        args = re.findall(r"Li(\d+)E", name.group(2))
+        args = template_args(fn, name.end())
         key = name.group(1) + (f"<{', '.join(args)}>" if args else "")
         entry = out.setdefault(key, {"source": src})
         if m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
@@ -569,7 +595,7 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj, rows_i8, d_scale, k1):
     n = rows_bf16.shape[0]
     cmax = max_row_norm(rows_bf16)
     qf = DK._project(q_emb, view_proj).reshape(-1, DIM)
-    q5, _ = DK.quantize_rows(qf)          # what dense_topk_int8 gives K1 on the flagship
+    q5, _ = DK.quantize_rows(qf)          # what pallas_dense_topk_int8 gives K1 on the flagship
     args = (q5, rows_i8, d_scale)
     got = DK.group_max_packed_int8(*args)
     ref = DK.group_max_packed_int8_plain(*args, n)
@@ -643,10 +669,13 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj, rows_i8, d_scale, k1):
         log(f"  K8 group_max_scores stride {stride} {tuple(qb.shape)} -> {tuple(got[0].shape)}: "
             f"within tolerance (max err {err:.3g}, {nd} ids differ, all near-ties)")
         del got, ref
+    n_pad = -(-n // 2048) * 2048
     timed("group_max_scores", lambda: DK.group_max_scores(qb, rows_bf16, stride=4),
           lambda: DK.group_max_scores_plain(qb, rows_bf16, n, 4), err, qb,
-          8 * qb.shape[0] * (-(-n // 2048) * 2048 // 512),
-          ms_stride1=median_ms(lambda: DK.group_max_scores(qb, rows_bf16), 5))
+          8 * qb.shape[0] * (n_pad // 512),
+          ms_stride1=median_ms(lambda: DK.group_max_scores(qb, rows_bf16), 5),
+          bound_ms_stride1=bound(qb.numel() * 2 + n * DIM * 2 + 8 * qb.shape[0] * (n_pad // 128),
+                                 2.0 * qb.shape[0] * n * DIM, "bf16")[0])
 
     rows_g, _ = global_int8(rows_bf16)
     q_int, _ = DK.quantize_rows(q_emb)
@@ -669,7 +698,36 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj, rows_i8, d_scale, k1):
     del got, ref
     timed("streaming_group_max", lambda: ST.streaming_group_max(qb, rows_bf16),
           lambda: ST.streaming_group_max_plain(qb, rows_bf16, n), err, qb, out_bytes)
+    wide_group_argmax(res, rows_bf16.device)
     return res, cmax
+
+
+def wide_group_argmax(res, dev):
+    """K8 (stride 1 and 4) and K10 at D = 1024 against their plain versions:
+    1024 bf16 queries x a 131,072-doc bf16 corpus, both seeded normal draws
+    made on the card. Their max value errors go into the kernels' entries of
+    `res` as max_abs_err_d1024."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk as DK
+    from qpp_fusion_rag_tpu_torch.ops.kernels import streaming_topk as ST
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    c = torch.randn((WIDE_DOCS, WIDE_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((BATCH, WIDE_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    cmax = max_row_norm(c)
+    for name, what, kernel, plain in (
+            ("group_max_scores", "K8 stride 1", lambda: DK.group_max_scores(q, c),
+             lambda: DK.group_max_scores_plain(q, c, WIDE_DOCS)),
+            ("group_max_scores", "K8 stride 4", lambda: DK.group_max_scores(q, c, stride=4),
+             lambda: DK.group_max_scores_plain(q, c, WIDE_DOCS, 4)),
+            ("streaming_group_max", "K10", lambda: ST.streaming_group_max(q, c),
+             lambda: ST.streaming_group_max_plain(q, c, WIDE_DOCS))):
+        got = kernel()
+        err, nd = check_group_close(f"{what} at D {WIDE_DIM}", q, c, cmax, got, plain())
+        r = res[name]
+        r["max_abs_err_d1024"] = max(r.get("max_abs_err_d1024", 0.0), err)
+        log(f"  {what} at D {WIDE_DIM} {tuple(q.shape)} x {tuple(c.shape)} -> "
+            f"{tuple(got[0].shape)}: within tolerance (max err {err:.3g}, {nd} ids differ, "
+            "all near-ties)")
 
 
 def run_flagship(name, step, corpus, batches, view_proj, smi, expect, rounds=ROUNDS, **kw):
@@ -770,8 +828,8 @@ def flagship_cross_check(rows_bf16, rows_i8, scale, fbatch, view_proj, cmax):
     q_emb, tf = fbatch
     qv = DK._project(q_emb[:CROSS_Q], view_proj).reshape(-1, DIM)
     c_i8, c_sc, c_bf = rows_i8.cpu(), scale.cpu(), rows_bf16.cpu()
-    g = DK.dense_topk_int8(qv, rows_i8, scale, k=TOP_K)
-    c = DK.dense_topk_int8(qv.cpu(), c_i8, c_sc, k=TOP_K)
+    g = DK.pallas_dense_topk_int8(qv, rows_i8, scale, k=TOP_K)
+    c = DK.pallas_dense_topk_int8(qv.cpu(), c_i8, c_sc, k=TOP_K)
     if not all(torch.equal(a.cpu(), b) for a, b in zip(g, c)):
         raise AssertionError("int8 route runs: card and CPU disagree")
     g = DK.pallas_dense_topk(qv, rows_bf16, k=TOP_K)
@@ -845,7 +903,8 @@ def main() -> None:
         if any(k in line for k in ("registers", "spill", "arning")) or line.startswith("=="):
             log(f"    ptxas: {line.strip()}")
     kernel_ptxas = ptxas_summary(build_log)
-    log("    ptxas, bitonic kernels and K6 (registers, spill stores / loads, stack bytes): "
+    log("    ptxas, bitonic kernels, K6 and the wgmma group max (registers, spill stores / "
+        "loads, stack bytes): "
         + "; ".join(
         f"{k} [{v['source']}] {v.get('registers')} regs, {v.get('spill_stores')} / "
         f"{v.get('spill_loads')} spill, {v.get('stack')} stack"
@@ -978,8 +1037,8 @@ def main() -> None:
                                  f"splade q8r at Tq {LONG_TQ}")
         del c
     c_rows, c_scale = idx_rs.corpus_rows.cpu(), idx_rs.d_scale.cpu()
-    g_s, g_i = dense_topk.dense_topk_int8(q_emb, idx_rs.corpus_rows, idx_rs.d_scale, k=TOP_K)
-    c_s, c_i = dense_topk.dense_topk_int8(q_emb[:CROSS_Q].cpu(), c_rows, c_scale, k=TOP_K)
+    g_s, g_i = dense_topk.pallas_dense_topk_int8(q_emb, idx_rs.corpus_rows, idx_rs.d_scale, k=TOP_K)
+    c_s, c_i = dense_topk.pallas_dense_topk_int8(q_emb[:CROSS_Q].cpu(), c_rows, c_scale, k=TOP_K)
     if not (torch.equal(g_i[:CROSS_Q].cpu(), c_i) and torch.equal(g_s[:CROSS_Q].cpu(), c_s)):
         raise AssertionError("dense view: card and CPU disagree")
     c_bf16 = idx_rs.rerank_rows.cpu()
@@ -1091,7 +1150,7 @@ def main() -> None:
                                  "dense_topk_stride4"),
             "group_max_packed_int8_global": (src + "group_max_int8_global.cu",
                                              tpu + "dense_topk.py:258", "int8_global"),
-            "streaming_group_max": (src + "streaming_group_max.cu", tpu + "streaming_topk.py:91",
+            "streaming_group_max": (src + "group_max_scores.cu", tpu + "streaming_topk.py:91",
                                     "streaming")}
     paths = {"q8": q8_launches, "q8r": q8r_launches, "q8r_fallback": fb_launches,
              "splade_q8_tq32": long_launches["q8"], "splade_q8r_tq32": long_launches["q8r"],

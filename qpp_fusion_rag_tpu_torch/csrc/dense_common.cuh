@@ -1,31 +1,26 @@
-// The mma.sync main loop and epilogues of the dense group-max kernels K8
-// group_max_scores.cu, K9 group_max_int8_global.cu and K10
-// streaming_group_max.cu. K1 and K7 run on the TMA + wgmma loop of
-// dense_wgmma.cuh instead.
+// The mma.sync main loop and epilogue of the dense group-max kernel K9
+// (group_max_int8_global.cu). K1, K7, K8 and K10 run on the TMA + wgmma
+// loop of dense_wgmma.cuh instead.
 //
 // One block of 256 threads (8 warps as 4 x 2, each a 32 x 64 sub-tile)
-// computes a 128-query x 128-doc tile of dot products with mma.sync on the
-// tensor cores: s8 m16n8k32 -> s32 (K9) or bf16 m16n8k16 -> f32 (K8,
-// K10). A 128-doc tile is exactly one output group.
+// computes a 128-query x 128-doc tile of dot products with mma.sync
+// m16n8k32 s8 -> s32 on the tensor cores. A 128-doc tile is exactly one
+// output group.
 //
-// Both element types stage K in slices of 64 BYTES (64 int8 or 32 bf16
-// values) per operand row, with a 16-byte row pad so the fragment loads hit
-// 32 distinct banks; each slice goes global -> registers -> shared memory,
-// and the next slice's global loads are in flight during the current
-// slice's mma (tile_loop). In bytes, the s8 m16n8k32 and bf16 m16n8k16 fragments
-// sit at the same offsets (row g / g+8, bytes tg*4 and tg*4+16), so one
-// fragment loader serves both and only the mma instruction differs.
+// K is staged in slices of 64 bytes per operand row, with a 16-byte row
+// pad so the fragment loads hit 32 distinct banks; each slice goes global
+// -> registers -> shared memory, and the next slice's global loads are in
+// flight during the current slice's mma (tile_loop).
 //
 // Accumulator element (mi, ni, e) of warp (wm, wn), lane (g = lane / 4,
 // tg = lane % 4) is tile row wm*32 + mi*16 + g + 8*(e / 2) and tile column
-// wn*64 + ni*8 + tg*2 + (e % 2). The epilogues reduce each row's 128
+// wn*64 + ni*8 + tg*2 + (e % 2). The epilogue reduces each row's 128
 // columns in registers, then across the 4 lanes of a quad (shuffles), then
 // across the two column warps (shared memory).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <limits.h>
-#include <math.h>
 #include <stdint.h>
 
 namespace dense {
@@ -43,18 +38,6 @@ struct S8 {
         "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-struct Bf16 {
-  using Acc = float;
-  static __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                             const unsigned (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
 };
@@ -208,58 +191,6 @@ __device__ __forceinline__ void packed_imax_rows(ScoreFn score, int (&red)[2][kB
       v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
       v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
       if (L.tg == 0) red[L.wn][L.wm * 32 + mi * 16 + h * 8 + L.g] = v;
-    }
-  __syncthreads();
-}
-
-// (v, c) replaces (bv, bc) when larger, or equal at a lower column: the
-// first occurrence of the maximum, as jnp.argmax takes it.
-__device__ __forceinline__ void take_first_max(float& bv, int& bc, float v, int c) {
-  if (v > bv || (v == bv && c < bc)) {
-    bv = v;
-    bc = c;
-  }
-}
-
-// (max, first argmax column) per row. -> rv/rc[wn][row]; the caller
-// combines the two column halves (take_first_max) after the barrier.
-template <class ScoreFn>
-__device__ __forceinline__ void argmax_rows(ScoreFn score, float (&rv)[2][kBM],
-                                            int (&rc)[2][kBM], const Lane& L) {
-  float bv[2][2];
-  int bc[2][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      bv[mi][h] = -INFINITY;
-      bc[mi][h] = INT_MAX;
-    }
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = L.wn * 64 + ni * 8 + L.tg * 2 + e;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          take_first_max(bv[mi][h], bc[mi][h], score(mi, ni, 2 * h + e, col), col);
-    }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = bv[mi][h];
-      int c = bc[mi][h];
-#pragma unroll
-      for (int x = 1; x <= 2; x <<= 1)
-        take_first_max(v, c, __shfl_xor_sync(0xffffffffu, v, x),
-                       __shfl_xor_sync(0xffffffffu, c, x));
-      if (L.tg == 0) {
-        rv[L.wn][L.wm * 32 + mi * 16 + h * 8 + L.g] = v;
-        rc[L.wn][L.wm * 32 + mi * 16 + h * 8 + L.g] = c;
-      }
     }
   __syncthreads();
 }

@@ -1,10 +1,15 @@
-// The Hopper main loop of the packed dense group-max kernels K1
-// (dense_topk_int8.cu, s8) and K7 (group_max_packed.cu, bf16, corpus as
-// rows [N, D] or as [D, N]): TMA loads into a ring of shared-memory stages,
-// wgmma on two consumer warpgroups, a persistent grid of two-CTA clusters.
+// The Hopper main loop of the dense group-max kernels K1 (dense_topk_int8.cu,
+// s8), K7 (group_max_packed.cu, bf16, corpus as rows [N, D] or as [D, N])
+// and K8 / K10 (group_max_scores.cu, bf16 rows, (max, first argmax) per
+// group): TMA loads into a ring of shared-memory stages, wgmma on two
+// consumer warpgroups, a persistent grid of two-CTA clusters. One kernel
+// template, group_max_kernel, runs them all; an epilogue policy (PackedMax
+// for K1 and K7, FirstArgmax for K8 and K10) says which docs each tile
+// holds and what the consumers make of its accumulators.
 //
 // One block of 384 threads per SM computes output tiles of 128 queries x
-// 256 docs (two 128-doc groups). The two CTAs of a cluster take query tiles
+// 256 docs (two 128-doc groups, each its own TMA box, so they need not be
+// adjacent in the corpus). The two CTAs of a cluster take query tiles
 // 2p and 2p + 1 of the same doc tile: each loads its own queries and half
 // of the doc tile, multicast into both CTAs' shared memory, so a doc stage
 // leaves L2 once per cluster (32 KB of L2 reads per CTA and stage instead of
@@ -79,6 +84,8 @@ struct Smem {
   uint64_t full[kStages];
   uint64_t empty[kStages];
   float scale[2][kBN];                   // K1: per-doc scales, one copy per consumer
+  float best_v[2][2 * 64];               // K8, K10: the unit's (max, id) so far, per
+  int best_i[2][2 * 64];                 // consumer, group and row
 };
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;   // + room to align the base to 1024
 
@@ -258,28 +265,216 @@ __device__ __forceinline__ void wg_bar(int id) {
 
 // ---------------------------------------------------------------- kernel ---
 
-// out[m, g] = max over the 128 docs n of group g of
-//   pack(score(m, n), lane = n & 127),  pack(v, l) = bits(v) & ~0x7F | l,
-// score = float(acc) * scale[n] (Op::kScaled, exact int32 -> f32 and ONE
-// rounding of the product, __fmul_rn) or acc, and -3e38 for n >= n_real;
-// the max is a FLOAT max (fmaxf). Built without flush-to-zero: a zero score
-// packs into a denormal that must survive the max.
-template <class Op, int kTransB>
+// A consumer thread: warpgroup c (query rows 64c .. 64c + 63 of the tile),
+// its warp and lane = 4 g + tg.
+struct Consumer {
+  int c, tid, warp, g, tg;
+  __device__ __forceinline__ int row(int h) const { return 64 * c + 16 * warp + g + 8 * h; }
+};
+
+// The two epilogue policies. Work is handed out in units: a pair of query
+// tiles x one unit of steps() doc tiles. Half `half` of doc tile `step` of
+// unit u is the 128 docs from doc0(u, half) + step * step_docs(); CTA
+// `half` of the cluster loads it and multicasts it to both. The consumers
+// run tile() on the accumulators of every doc tile and finish() once per
+// unit. The kernel is compiled at 168 registers a thread (384 threads, one
+// CTA an SM; setmaxnreg does not raise what ptxas allots), of which the
+// consumers' 128 accumulators take most: an epilogue must live on ~20.
+
+// K1, K7: unit u is doc tile u (docs 256 u .. 256 u + 255), one step.
+//   out[m, g] = max over the 128 docs n of group g of
+//     pack(score(m, n), lane = n & 127),  pack(v, l) = bits(v) & ~0x7F | l,
+//   score = float(acc) * scale[n] (Op::kScaled, exact int32 -> f32 and ONE
+//   rounding of the product, __fmul_rn) or acc, and -3e38 for n >= n_real;
+//   the max is a FLOAT max (fmaxf). Built without flush-to-zero: a zero
+//   score packs into a denormal that must survive the max.
+struct PackedMax {
+  float* out;                               // [M, ceil(N / 128)]
+  struct Carry {};
+  static __device__ __forceinline__ Carry carry(Smem&, int) { return {}; }
+
+  __device__ __forceinline__ int steps() const { return 1; }
+  __device__ __forceinline__ int step_docs() const { return 0; }
+  __device__ __forceinline__ int doc0(int u, int half) const {
+    return u * kBN + half * (kBN / kCluster);
+  }
+
+  template <class Op>
+  __device__ __forceinline__ void tile(typename Op::Acc (&d)[128], const Consumer& t,
+                                       const float* scales, int M, int N, int n_real, int m0,
+                                       int u, int, const int*, const Carry&) const {
+    const int n0 = u * kBN, G = (N + 127) / 128;
+    // Thread-local maxima pack only the lane bits 8jj + e (bits 0 and
+    // 3..6): the thread's own 2tg (bits 1..2) is the same for all its
+    // values, so it cannot change which one wins; it is ORed in after.
+    const float* sc = scales + 2 * t.tg;
+    auto group_max = [&](int grp, int h, auto masked) -> float {
+      float r = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const int j = grp * 16 + jj;
+        float2 scale2 = make_float2(0.0f, 0.0f);
+        if constexpr (Op::kScaled) scale2 = *reinterpret_cast<const float2*>(sc + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v;
+          if constexpr (Op::kScaled)
+            v = __fmul_rn(__int2float_rn(d[4 * j + 2 * h + e]), e ? scale2.y : scale2.x);
+          else
+            v = d[4 * j + 2 * h + e];
+          if constexpr (decltype(masked)::value)
+            v = n0 + 8 * j + 2 * t.tg + e < n_real ? v : kNegFinite;
+          r = fmaxf(r, __int_as_float((__float_as_int(v) & ~0x7F) | (8 * jj + e)));
+        }
+      }
+      return __int_as_float(__float_as_int(r) | 2 * t.tg);
+    };
+    auto write_tile = [&](auto masked) {
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        const int gcol = 2 * u + grp;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v = group_max(grp, h, masked);
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+          const int m = m0 + t.row(h);
+          if (t.tg == 0 && m < M && gcol < G) out[static_cast<long long>(m) * G + gcol] = v;
+        }
+      }
+    };
+    if (n0 + kBN <= n_real)                 // no doc of the tile is masked
+      write_tile(std::false_type{});
+    else
+      write_tile(std::true_type{});
+  }
+
+  __device__ __forceinline__ void finish(const Carry&, const Consumer&, int, int, int) const {}
+};
+
+// K8, K10: (max, first argmax) per 128-doc group with JAX's stride merge.
+// Output column o of tn tile t = o / g2 merges groups t g + s g2 + o % g2,
+// s = 0 .. stride - 1 (g = tn / 128 groups a tn tile, g2 = g / stride),
+// in that order under a strict '>', so an earlier block keeps a tie.
+// Unit u is columns 2u and 2u + 1, step s its two groups of block s: the
+// halves of a doc tile need not be adjacent, so one tile serves both
+// columns. Scores are f32 sums; docs n >= n_real score -inf; the id is a
+// global doc id, the group's first doc when every doc is masked (as
+// jnp.argmax over all -inf gives 0). Stride 1 is K7's schedule.
+// Registers: 128 accumulators leave an epilogue little of the 168 a
+// thread has. So the (max, id) carried across a unit's tiles lives in
+// shared memory, one slot per row and group that only the row's lane
+// tg == 0 touches (no barrier), and a tile with masked docs first sets
+// their accumulators to -inf in place, so one scan serves both kinds of
+// tile (a compare-and-select per value inside the scan spilled).
+struct FirstArgmax {
+  float* vals;                              // [M, n_out]
+  int* ids;
+  int n_out, stride, g, g2;
+  struct Carry {                            // this consumer's slots: [group * 64 + row]
+    float* v;
+    int* i;
+  };
+  static __device__ __forceinline__ Carry carry(Smem& s, int c) {
+    return {s.best_v[c], s.best_i[c]};
+  }
+
+  __device__ __forceinline__ int steps() const { return stride; }
+  __device__ __forceinline__ int step_docs() const { return g2 * 128; }
+  __device__ __forceinline__ int doc0(int u, int half) const {
+    const int o = 2 * u + half;
+    return ((o / g2) * g + o % g2) * 128;
+  }
+
+  template <class Op>
+  __device__ __forceinline__ void tile(typename Op::Acc (&d)[128], const Consumer& t,
+                                       const float*, int, int, int n_real, int, int, int s,
+                                       const int* base, const Carry& best) const {
+    if (max(base[0], base[1]) + 128 > n_real) {   // docs n >= n_real score -inf
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        const int lim = n_real - base[grp];       // the group's first masked column
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (8 * jj + 2 * t.tg + (i & 1) >= lim) d[4 * (grp * 16 + jj) + i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // the thread's columns 8jj + 2tg + e in increasing order, strict
+        // '>': its first maximum; 2tg if all are -inf
+        float v = -INFINITY;
+        int col = 2 * t.tg;
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = d[4 * (grp * 16 + jj) + 2 * h + e];
+            if (x > v) {
+              v = x;
+              col = 8 * jj + 2 * t.tg + e;
+            }
+          }
+        }
+        // the quad's first maximum: larger value, or equal at a lower
+        // column (jnp.argmax's); the group's first doc when all are -inf
+#pragma unroll
+        for (int lane_mask = 1; lane_mask <= 2; lane_mask <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, v, lane_mask);
+          const int oc = __shfl_xor_sync(0xffffffffu, col, lane_mask);
+          if (ov > v || (ov == v && oc < col)) {
+            v = ov;
+            col = oc;
+          }
+        }
+        const int slot = grp * 64 + 16 * t.warp + t.g + 8 * h;
+        if (t.tg == 0 && (s == 0 || v > best.v[slot])) {
+          best.v[slot] = v;
+          best.i[slot] = base[grp] + col;
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(const Carry& best, const Consumer& t, int M, int m0,
+                                         int u) const {
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+      const int o = 2 * u + grp;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + t.row(h), slot = grp * 64 + 16 * t.warp + t.g + 8 * h;
+        if (t.tg == 0 && m < M && o < n_out) {
+          const long long at = static_cast<long long>(m) * n_out + o;
+          vals[at] = best.v[slot];
+          ids[at] = best.i[slot];
+        }
+      }
+    }
+  }
+};
+
+// The one main loop of K1, K7, K8 and K10. Epi is PackedMax or FirstArgmax.
+template <class Op, int kTransB, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
-    packed_group_max(const __grid_constant__ CUtensorMap map_q,
-                     const __grid_constant__ CUtensorMap map_c, const float* __restrict__ scale,
-                     int M, int N, int n_real, int k_iters, int m_tiles, int n_tiles,
-                     float* __restrict__ out) {
+    group_max_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_c, const __grid_constant__ Epi epi,
+                     const float* __restrict__ scale, int M, int N, int n_real, int k_iters,
+                     int m_tiles, int n_units) {
   extern __shared__ uint8_t smem_raw[];
   // pointer arithmetic on the shared array (not an integer round trip), so
   // the compiler keeps shared-memory loads for the scales
   Smem& s = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   const int wgi = threadIdx.x / 128;
-  // a cluster takes query tiles 2p and 2p + 1 of one doc tile (pair p);
-  // pairs go query-pair fastest
+  // a cluster takes query tiles 2p and 2p + 1 of one unit (pair p); pairs
+  // go query-pair fastest
   const int rank = static_cast<int>(cluster_rank());
   const int m_pairs = (m_tiles + kCluster - 1) / kCluster;
-  const int num_pairs = m_pairs * n_tiles;
+  const int num_pairs = m_pairs * n_units;
   const int cid = blockIdx.x / kCluster, n_clusters = gridDim.x / kCluster;
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -304,26 +499,28 @@ __global__ void __launch_bounds__(kThreads, 1)
       int it = 0;
       for (int p = cid; p < num_pairs; p += n_clusters) {
         const int m0 = ((p % m_pairs) * kCluster + rank) * kBM;
-        const int n0 = (p / m_pairs) * kBN;
-        for (int kb = 0; kb < k_iters; ++kb, ++it) {
-          const int st = it % kStages;
-          mbar_wait(&s.empty[st], ((it / kStages) & 1) ^ 1);
-          if (issue) {
-            mbar_expect_tx(&s.full[st], kStageBytes);
-            const int k0 = kb * (kBK / Op::kElem);   // K coordinate in values
-            tma_load(&map_q, s.a[st], &s.full[st], k0, m0);
-            if (kTransB) {
+        const int u = p / m_pairs;
+        int h0 = epi.doc0(u, rank);         // this CTA's half of the doc tile
+        for (int step = 0; step < epi.steps(); ++step, h0 += epi.step_docs()) {
+          for (int kb = 0; kb < k_iters; ++kb, ++it) {
+            const int st = it % kStages;
+            mbar_wait(&s.empty[st], ((it / kStages) & 1) ^ 1);
+            if (issue) {
+              mbar_expect_tx(&s.full[st], kStageBytes);
+              const int k0 = kb * (kBK / Op::kElem);   // K coordinate in values
+              tma_load(&map_q, s.a[st], &s.full[st], k0, m0);
+              uint8_t* b = s.b[st] + rank * (kBN / kCluster) * kBK;
+              if (kTransB) {
 #pragma unroll
-              for (int j = rank * 2; j < rank * 2 + 2; ++j)
-                tma_load_multicast(&map_c, s.b[st] + j * kTransBox * kBK, &s.full[st],
-                                   n0 + j * kTransBox, k0, kBoth);
-            } else {
-              const int half = rank * (kBN / kCluster);
-              tma_load_multicast(&map_c, s.b[st] + half * kBK, &s.full[st], k0, n0 + half,
-                                 kBoth);
+                for (int j = 0; j < 2; ++j)
+                  tma_load_multicast(&map_c, b + j * kTransBox * kBK, &s.full[st],
+                                     h0 + j * kTransBox, k0, kBoth);
+              } else {
+                tma_load_multicast(&map_c, b, &s.full[st], k0, h0, kBoth);
+              }
             }
+            __syncwarp();
           }
-          __syncwarp();
         }
       }
     }
@@ -331,10 +528,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   } else {
     // ------------------------------------------------------- consumers ---
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int c = wgi - 1;                  // consumer index: query rows 64c .. 64c+63
-    const int tid = threadIdx.x % 128;
-    const int warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
-    const int G = (N + 127) / 128;
+    Consumer t;
+    t.c = wgi - 1;                          // consumer index: query rows 64c .. 64c+63
+    t.tid = threadIdx.x % 128;
+    t.warp = t.tid / 32;
+    t.g = (t.tid % 32) / 4;
+    t.tg = t.tid % 4;
+    const int c = t.c, tid = t.tid;
     // a stage is free again once both CTAs' consumers are done with it
     auto release = [&](int st) {
       if (tid < kCluster) mbar_arrive_cluster(&s.empty[st], tid);
@@ -342,95 +542,59 @@ __global__ void __launch_bounds__(kThreads, 1)
     typename Op::Acc d[128];
 #pragma unroll
     for (int i = 0; i < 128; ++i) d[i] = 0;
+    const typename Epi::Carry carry = Epi::carry(s, c);
     int it = 0;
     for (int p = cid; p < num_pairs; p += n_clusters) {
       const int m0 = ((p % m_pairs) * kCluster + rank) * kBM;
-      const int n_tile = p / m_pairs;
-      const int n0 = n_tile * kBN;
-      float sc_reg[2];
-      if constexpr (Op::kScaled) {
+      const int u = p / m_pairs;
+      int base[2] = {epi.doc0(u, 0), epi.doc0(u, 1)};   // the tile's two groups
+      for (int step = 0; step < epi.steps(); ++step) {
+        float sc_reg[2];
+        if constexpr (Op::kScaled) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int n = n0 + tid + 128 * i;
-          sc_reg[i] = n < N ? __ldg(scale + n) : 0.0f;
-        }
-      }
-
-      int prev = 0;
-      fence_acc(d);                         // the previous epilogue's reads come first
-      for (int kb = 0; kb < k_iters; ++kb, ++it) {
-        const int st = it % kStages;
-        mbar_wait(&s.full[st], (it / kStages) & 1);
-        wgmma_fence();
-        const uint8_t* a = s.a[st] + c * 64 * kBK;
-#pragma unroll
-        for (int kk = 0; kk < kBK / 32; ++kk) {
-          // K-major: LBO unused by the swizzled layout (1, as CUTLASS sets it)
-          const uint64_t da = desc(a + kk * 32, 16, 1024);
-          const uint64_t db = kTransB ? desc(s.b[st] + kk * 16 * kBK, kTransBox * kBK, 1024)
-                                      : desc(s.b[st] + kk * 32, 16, 1024);
-          Op::template mma<kTransB>(d, da, db, kb > 0 || kk > 0);
-        }
-        wgmma_commit();
-        if (kb > 0) {
-          wgmma_wait<1>();                  // the previous stage's wgmmas are done
-          release(prev);
-        }
-        prev = st;
-      }
-      wgmma_wait<0>();
-      fence_acc(d);
-      release(prev);
-
-      if constexpr (Op::kScaled) {   // stage the tile's 256 doc scales once
-        wg_bar(1 + c);                      // the previous tile's reads are done
-        s.scale[c][tid] = sc_reg[0];
-        s.scale[c][tid + 128] = sc_reg[1];
-        wg_bar(1 + c);
-      }
-      // Thread-local maxima pack only the lane bits 8jj + e (bits 0 and
-      // 3..6): the thread's own 2tg (bits 1..2) is the same for all its
-      // values, so it cannot change which one wins; it is ORed in after.
-      const float* sc = s.scale[c] + 2 * tg;
-      auto group_max = [&](int grp, int h, auto masked) -> float {
-        float r = -INFINITY;
-#pragma unroll
-        for (int jj = 0; jj < 16; ++jj) {
-          const int j = grp * 16 + jj;
-          float2 scale2 = make_float2(0.0f, 0.0f);
-          if constexpr (Op::kScaled) scale2 = *reinterpret_cast<const float2*>(sc + 8 * j);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float v;
-            if constexpr (Op::kScaled)
-              v = __fmul_rn(__int2float_rn(d[4 * j + 2 * h + e]), e ? scale2.y : scale2.x);
-            else
-              v = d[4 * j + 2 * h + e];
-            if constexpr (decltype(masked)::value)
-              v = n0 + 8 * j + 2 * tg + e < n_real ? v : kNegFinite;
-            r = fmaxf(r, __int_as_float((__float_as_int(v) & ~0x7F) | (8 * jj + e)));
+          for (int i = 0; i < 2; ++i) {
+            const int n = base[i] + tid;
+            sc_reg[i] = n < N ? __ldg(scale + n) : 0.0f;
           }
         }
-        return __int_as_float(__float_as_int(r) | 2 * tg);
-      };
-      auto write_tile = [&](auto masked) {
+
+        int prev = 0;
+        fence_acc(d);                       // the previous epilogue's reads come first
+        for (int kb = 0; kb < k_iters; ++kb, ++it) {
+          const int st = it % kStages;
+          mbar_wait(&s.full[st], (it / kStages) & 1);
+          wgmma_fence();
+          const uint8_t* a = s.a[st] + c * 64 * kBK;
 #pragma unroll
-        for (int grp = 0; grp < 2; ++grp) {
-          const int gcol = 2 * n_tile + grp;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float v = group_max(grp, h, masked);
-            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-            const int m = m0 + 64 * c + 16 * warp + g + 8 * h;
-            if (tg == 0 && m < M && gcol < G) out[static_cast<long long>(m) * G + gcol] = v;
+          for (int kk = 0; kk < kBK / 32; ++kk) {
+            // K-major: LBO unused by the swizzled layout (1, as CUTLASS sets it)
+            const uint64_t da = desc(a + kk * 32, 16, 1024);
+            const uint64_t db = kTransB ? desc(s.b[st] + kk * 16 * kBK, kTransBox * kBK, 1024)
+                                        : desc(s.b[st] + kk * 32, 16, 1024);
+            Op::template mma<kTransB>(d, da, db, kb > 0 || kk > 0);
           }
+          wgmma_commit();
+          if (kb > 0) {
+            wgmma_wait<1>();                // the previous stage's wgmmas are done
+            release(prev);
+          }
+          prev = st;
         }
-      };
-      if (n0 + kBN <= n_real)                 // no doc of the tile is masked
-        write_tile(std::false_type{});
-      else
-        write_tile(std::true_type{});
+        wgmma_wait<0>();
+        fence_acc(d);
+        release(prev);
+
+        if constexpr (Op::kScaled) {   // stage the tile's 256 doc scales once
+          wg_bar(1 + c);                    // the previous tile's reads are done
+          s.scale[c][tid] = sc_reg[0];
+          s.scale[c][tid + 128] = sc_reg[1];
+          wg_bar(1 + c);
+        }
+        epi.template tile<Op>(d, t, s.scale[c], M, N, n_real, m0, u, step, base, carry);
+        base[0] += epi.step_docs();
+        base[1] += epi.step_docs();
+      }
+      epi.finish(carry, t, M, m0, u);
     }
     cluster_sync();
   }
@@ -473,12 +637,12 @@ inline bool make_map(CUtensorMap* map, const void* ptr, long long rows, long lon
 }
 
 // Encode the maps and launch the persistent grid: clusters of two CTAs,
-// as many as the card runs at once (one CTA per SM), at most one per tile
+// as many as the card runs at once (one CTA per SM), at most one per unit
 // pair. elem = 1 (s8) or 2 (bf16); the corpus is [N, D], or [D, N] when
 // kTransB. -> a cudaError_t as int.
-template <class Op, int kTransB>
-int launch_packed_group_max(const void* q, const void* corpus, const float* scale, int M, int N,
-                            int D, int n_real, float* out, cudaStream_t stream) {
+template <class Op, int kTransB, class Epi>
+int launch(const void* q, const void* corpus, const float* scale, int M, int N, int D,
+           int n_real, int n_units, const Epi& epi, cudaStream_t stream) {
   const int elem = Op::kElem;
   const int per_row = kBK / elem;                      // K values per 128-byte row
   CUtensorMap map_q, map_c;
@@ -486,13 +650,12 @@ int launch_packed_group_max(const void* q, const void* corpus, const float* scal
   ok = ok && (kTransB ? make_map(&map_c, corpus, D, N, elem, kTransBox, kTransBox)
                       : make_map(&map_c, corpus, N, D, elem, per_row, kBN / kCluster));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = packed_group_max<Op, kTransB>;
+  auto kernel = group_max_kernel<Op, kTransB, Epi>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int m_tiles = (M + kBM - 1) / kBM;
-  const int n_tiles = (N + kBN - 1) / kBN;
-  const long long pairs = static_cast<long long>((m_tiles + kCluster - 1) / kCluster) * n_tiles;
+  const long long pairs = static_cast<long long>((m_tiles + kCluster - 1) / kCluster) * n_units;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = kCluster;
@@ -511,9 +674,17 @@ int launch_packed_group_max(const void* q, const void* corpus, const float* scal
   if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   cfg.gridDim = dim3(kCluster * static_cast<unsigned>(pairs < clusters ? pairs : clusters));
   const int k_iters = (D + per_row - 1) / per_row;
-  err = cudaLaunchKernelEx(&cfg, kernel, map_q, map_c, scale, M, N, n_real, k_iters, m_tiles,
-                           n_tiles, out);
+  err = cudaLaunchKernelEx(&cfg, kernel, map_q, map_c, epi, scale, M, N, n_real, k_iters,
+                           m_tiles, n_units);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// K1, K7: packed group maxima [M, ceil(N / 128)].
+template <class Op, int kTransB>
+int launch_packed_group_max(const void* q, const void* corpus, const float* scale, int M, int N,
+                            int D, int n_real, float* out, cudaStream_t stream) {
+  return launch<Op, kTransB>(q, corpus, scale, M, N, D, n_real, (N + kBN - 1) / kBN,
+                             PackedMax{out}, stream);
 }
 
 }  // namespace wg

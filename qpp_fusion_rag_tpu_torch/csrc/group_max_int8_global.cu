@@ -13,8 +13,8 @@
 // group_max_packed_int8_global (_make_packed_kernel_int8_global), with the
 // corpus as rows [N, D] where the TPU kernel reads [D, N].
 //
-// Bound on the H100: int8 tensor-core arithmetic, as K1 (the same s8 main
-// loop of dense_common.cuh); the epilogue is shift + or + integer max, no
+// Bound on the H100: int8 tensor-core arithmetic, as K1 (here on the s8
+// mma.sync main loop of dense_common.cuh); the epilogue is shift + or + integer max, no
 // float conversion, no scale and no per-doc load.
 #include "dense_common.cuh"
 

@@ -1,5 +1,5 @@
-// K8: bf16 dense scores fused with the unpacked group (max, argmax), with
-// the optional stride reduce.
+// K8 and K10: bf16 dense scores fused with the unpacked group (max, first
+// argmax), K8 with the optional stride merge.
 //
 //   per 128-doc group: v = max of dot_f32(q[m], c[n]), id = the first n
 //   reaching it (global doc id); docs n >= n_real score -inf.
@@ -9,63 +9,36 @@
 //   t*g2 + j for tile t. tn is therefore part of the result.
 //
 // Replaces qpp_fusion_rag_tpu/ops/pallas/dense_topk.py:group_max_scores
-// (_make_kernel).
+// (_make_kernel) and qpp_fusion_rag_tpu/ops/pallas/streaming_topk.py:
+// _streaming_group_max (the kernel behind streaming_dense_topk). K10 is K8
+// at stride 1 over a corpus padded to a multiple of 16,384 docs.
 //
-// Bound on the H100: bf16 tensor-core arithmetic, as K7 (the same main
-// loop); the output is [M, N/(128 stride)] values + ids.
+// Bound on the H100: bf16 tensor-core arithmetic. At [1024, 768] x
+// 2,621,440 docs, 4.12e12 flops (4.17 ms at 989 TF/s) against a 4.03 GB
+// corpus (1.20 ms at 3.35 TB/s); the output is [M, N/(128 stride)] values
+// and ids, never the [M, N] scores.
 //
-// Design: one block per 128 queries x one OUTPUT column: it walks the
-// `stride` groups that merge into that column in block order, runs the
-// shared bf16 main loop over each, reduces each to (max, first argmax)
-// and merges them in registers, so the stride reduce costs no extra pass.
-#include "dense_common.cuh"
+// Design: the TMA + wgmma main loop of dense_wgmma.cuh with the FirstArgmax
+// epilogue. A unit of work is a query-tile pair x two output columns; the
+// cluster walks the `stride` doc tiles that merge into them back to back
+// (each tile's two 128-doc halves are separate TMA boxes, one per column),
+// and the consumers carry (max, id) per row in shared memory across them, so
+// the stride merge costs no extra pass. The persistent grid's query-pair-
+// fastest order runs the query tiles of a doc tile side by side, so the
+// corpus leaves HBM about once: what K10's schedule does on the TPU.
+#include "dense_wgmma.cuh"
 
 namespace {
 
-using namespace dense;
-
-__global__ void __launch_bounds__(kThreads) group_max_scores_kernel(
-    const uint16_t* __restrict__ q, const uint16_t* __restrict__ c, int M, int N, int D,
-    int n_real, int m_tiles, int n_out, int g, int stride, float* __restrict__ vals,
-    int* __restrict__ ids) {
-  __shared__ __align__(16) int8_t As[kBM * kLds];
-  __shared__ __align__(16) int8_t Bs[kBN * kLds];
-  __shared__ float rv[2][kBM];
-  __shared__ int rc[2][kBM];
-
-  const Lane L;
-  const int m0 = (blockIdx.x % m_tiles) * kBM;
-  const int o = blockIdx.x / m_tiles;
-  const int g2 = g / stride;
-
-  float best_v = -INFINITY;
-  int best_i = 0;
-  for (int s = 0; s < stride; ++s) {
-    const long long n0 =
-        (static_cast<long long>(o / g2) * g + s * g2 + o % g2) * kBN;
-    float acc[2][8][4];
-    tile_loop<Bf16>(acc, As, Bs, q, m0, M, c, n0, N, D * 2, L);
-    argmax_rows(
-        [&](int mi, int ni, int e4, int col) {
-          return n0 + col < n_real ? acc[mi][ni][e4] : -INFINITY;
-        },
-        rv, rc, L);
-    if (L.tid < kBM) {
-      float v = rv[0][L.tid];
-      int col = rc[0][L.tid];
-      take_first_max(v, col, rv[1][L.tid], rc[1][L.tid]);
-      if (s == 0 || v > best_v) {
-        best_v = v;
-        best_i = static_cast<int>(n0 + col);
-      }
-    }
-    // rv / rc are rewritten only after the next main loop's barriers
-  }
-  if (L.tid < kBM && m0 + L.tid < M) {
-    const long long at = static_cast<long long>(m0 + L.tid) * n_out + o;
-    vals[at] = best_v;
-    ids[at] = best_i;
-  }
+// bf16 [N, D] corpus -> (vals, ids) [M, n_out] at `stride`, tn = 128 g docs
+// (n_out = N_pad / (128 stride), N_pad a multiple of tn).
+int launch_group_argmax(const void* q, const void* corpus, int M, int N, int D, int n_real,
+                        int n_out, int g, int stride, void* vals, void* ids, void* stream) {
+  return wg::launch<wg::Bf16, 0>(
+      q, corpus, nullptr, M, N, D, n_real, (n_out + 1) / 2,
+      wg::FirstArgmax{static_cast<float*>(vals), static_cast<int*>(ids), n_out, stride, g,
+                      g / stride},
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -73,10 +46,11 @@ __global__ void __launch_bounds__(kThreads) group_max_scores_kernel(
 extern "C" int qfr_group_max_scores(const void* q, const void* corpus, int M, int N, int D,
                                     int n_real, int n_out, int g, int stride, void* vals,
                                     void* ids, void* stream) {
-  const int m_tiles = (M + kBM - 1) / kBM;
-  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(m_tiles) * n_out);
-  group_max_scores_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(corpus), M, N, D, n_real,
-      m_tiles, n_out, g, stride, static_cast<float*>(vals), static_cast<int*>(ids));
-  return static_cast<int>(cudaGetLastError());
+  return launch_group_argmax(q, corpus, M, N, D, n_real, n_out, g, stride, vals, ids, stream);
+}
+
+extern "C" int qfr_streaming_group_max(const void* q, const void* corpus, int M, int N, int D,
+                                       int n_real, int n_groups, void* vals, void* ids,
+                                       void* stream) {
+  return launch_group_argmax(q, corpus, M, N, D, n_real, n_groups, 1, 1, vals, ids, stream);
 }

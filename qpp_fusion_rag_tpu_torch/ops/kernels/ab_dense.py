@@ -1,0 +1,253 @@
+"""A/B of the dense group-max kernels between two checkouts, on one card.
+
+    python -m qpp_fusion_rag_tpu_torch.ops.kernels.ab_dense --other PATH
+
+PATH is the root of another checkout of this repository (for example an
+earlier commit unpacked with ``git archive`` into a directory that
+.gitignore lists). Both libraries are built from their own ``csrc/`` and
+loaded side by side; their C entry points are called on the same tensors,
+made on the card from a seed: K1 (qfr_group_max_packed_int8) at 1024 and
+5,120 rows, K7 (qfr_group_max_packed, [N, D] rows) at 5,120 rows, K8
+(qfr_group_max_scores) at stride 4 and 1 (tn 2048) and K10
+(qfr_streaming_group_max) at 1024 rows, over N docs of width D. Each time is
+the median of single calls between two CUDA events, taken in the order
+other, this, this, other. K1 and K7 must be bit-equal between the two
+builds; K8 and K10 are compared on integer-valued inputs (bit-equal) and
+their random-data outputs reported as the count of differing entries. The
+ptxas registers and spills of both builds' dense sources are printed, and
+the last line is one JSON object of the times.
+
+With --entry it times instead the two entry points that launch K8 and K10,
+``pallas_dense_topk(packed=False, stride=4)`` and ``streaming_dense_topk``,
+at 1024 queries: one process per checkout (each imports its own package),
+in the order other, this, this, other, each reporting the median of
+--reps calls after a warm-up (host clock around a synchronised call).
+
+It needs a CUDA card and the toolkit's nvcc; without a card it exits
+non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+DENSE_SOURCES = ("dense_topk_int8.cu", "group_max_packed.cu", "group_max_scores.cu",
+                 "streaming_group_max.cu")
+
+
+def _load_build(root: Path, tag: str):
+    """The _build module of the checkout at root, imported by file path
+    (it locates csrc/ and build/ from its own file)."""
+    path = root / "qpp_fusion_rag_tpu_torch" / "ops" / "kernels" / "_build.py"
+    spec = importlib.util.spec_from_file_location(f"_ab_build_{tag}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ptxas(log: str):
+    src, lines = None, []
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif src in DENSE_SOURCES and any(k in line for k in ("Compiling entry", "registers",
+                                                              "spill", "C7517")):
+            lines.append(f"{src}: {line.strip()[:200]}")
+    return lines
+
+
+def _time(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(statistics.median(out))
+
+
+def _calls(lib, q1, q5, qi1, qi5, rows_bf16, rows_i8, scale, stream):
+    """name -> (launch, outputs) of one library's C entry points."""
+    N, D = rows_bf16.shape
+    dev = rows_bf16.device
+    G = -(-N // 128)
+    n_pad = -(-N // 2048) * 2048
+    n_sup = -(-N // 16384) * 16384 // 128
+    out = {}
+
+    def packed_int8(q):
+        o = torch.empty((q.shape[0], G), dtype=torch.float32, device=dev)
+        return (lambda: lib.qfr_group_max_packed_int8(
+            q.data_ptr(), rows_i8.data_ptr(), scale.data_ptr(), q.shape[0], N, D, N,
+            o.data_ptr(), stream)), (o,)
+
+    def packed(q):
+        o = torch.empty((q.shape[0], G), dtype=torch.float32, device=dev)
+        return (lambda: lib.qfr_group_max_packed(
+            q.data_ptr(), rows_bf16.data_ptr(), q.shape[0], N, D, N, 0, o.data_ptr(),
+            stream)), (o,)
+
+    def argmax(q, n_out, entry, *extra):
+        v = torch.empty((q.shape[0], n_out), dtype=torch.float32, device=dev)
+        i = torch.empty((q.shape[0], n_out), dtype=torch.int32, device=dev)
+        return (lambda: entry(q.data_ptr(), rows_bf16.data_ptr(), q.shape[0], N, D, N, n_out,
+                              *extra, v.data_ptr(), i.data_ptr(), stream)), (v, i)
+
+    out["K1_1024"] = packed_int8(qi1)
+    out["K1_5120"] = packed_int8(qi5)
+    out["K7_5120"] = packed(q5)
+    out["K8_stride4"] = argmax(q1, n_pad // 512, lib.qfr_group_max_scores, 16, 4)
+    out["K8_stride1"] = argmax(q1, n_pad // 128, lib.qfr_group_max_scores, 16, 1)
+    out["K10"] = argmax(q1, n_sup, lib.qfr_streaming_group_max)
+    return out
+
+
+ENTRY = """
+import json, statistics, sys, time, torch
+from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk, streaming_topk
+N, D, reps, seed = map(int, sys.argv[1:5])
+gen = torch.Generator(device="cuda").manual_seed(seed)
+rows = torch.empty((N, D), dtype=torch.bfloat16, device="cuda")
+for n0 in range(0, N, 262_144):
+    rows[n0:n0 + 262_144] = torch.randn((min(N, n0 + 262_144) - n0, D), generator=gen,
+                                        device="cuda")
+q = torch.randn((1024, D), generator=gen, device="cuda")
+out = {}
+for name, fn in (("pallas_dense_topk_stride4", lambda: dense_topk.pallas_dense_topk(
+        q, rows, k=100, packed=False, stride=4)),
+                 ("streaming_dense_topk", lambda: streaming_topk.streaming_dense_topk(
+        q, rows, k=100))):
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out[name] = statistics.median(times)
+print(json.dumps(out))
+"""
+
+
+def entry_ab(other: Path, here: Path, args) -> dict:
+    """The entry points' times in one process per checkout."""
+    times = {}
+    for tag, root in (("other", other), ("this", here), ("this", here), ("other", other)):
+        r = subprocess.run([sys.executable, "-c", ENTRY, str(args.docs), str(args.dim),
+                            str(args.reps), str(args.seed)], cwd=root, capture_output=True,
+                           text=True, env={**os.environ, "PYTHONPATH": str(root)})
+        if r.returncode != 0:
+            raise RuntimeError(f"{tag} entry points failed:\n{r.stdout}{r.stderr}")
+        for name, ms in json.loads(r.stdout.strip().splitlines()[-1]).items():
+            times.setdefault(name, []).append(ms)
+    for name, t in times.items():
+        print(f"{name}: other / this / this / other ms " + " / ".join(f"{x:.3f}" for x in t))
+    return times
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", required=True, type=Path, help="root of the other checkout")
+    ap.add_argument("--docs", type=int, default=2_621_440)
+    ap.add_argument("--dim", type=int, default=768)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--entry", action="store_true", help="time the K8 / K10 entry points")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ab_dense: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    here = Path(__file__).resolve().parents[3]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    if args.entry:
+        times = entry_ab(args.other.resolve(), here, args)
+        print(json.dumps({"card": smi, "docs": args.docs, "dim": args.dim, "entry_ms": times}))
+        return 0
+    libs = {}
+    for tag, root in (("other", args.other.resolve()), ("this", here)):
+        b = _load_build(root, tag)
+        path, secs, log = b.build_library()
+        libs[tag] = b.load_library()
+        print(f"{tag}: {path} built in {secs:.1f} s", flush=True)
+        for line in _ptxas(log):
+            print(f"  {tag} ptxas {line}")
+
+    from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import quantize_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    N, D = args.docs, args.dim
+    rows_bf16 = torch.empty((N, D), dtype=torch.bfloat16, device=dev)
+    rows_i8 = torch.empty((N, D), dtype=torch.int8, device=dev)
+    scale = torch.empty(N, dtype=torch.float32, device=dev)
+    for n0 in range(0, N, 262_144):
+        x = torch.randn((min(N, n0 + 262_144) - n0, D), generator=gen, device=dev)
+        qx, s = quantize_rows(x)
+        rows_bf16[n0:n0 + x.shape[0]] = x
+        rows_i8[n0:n0 + x.shape[0]] = qx
+        scale[n0:n0 + x.shape[0]] = s[:, 0]
+    q5f = torch.randn((5120, D), generator=gen, device=dev)
+    q5 = q5f.to(torch.bfloat16)
+    q1 = q5[:1024].contiguous()
+    qi5 = quantize_rows(q5f)[0]
+    qi1 = qi5[:1024].contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {tag: _calls(lib, q1, q5, qi1, qi5, rows_bf16, rows_i8, scale, stream)
+             for tag, lib in libs.items()}
+
+    times = {name: [] for name in calls["this"]}
+    for tag in ("other", "this", "this", "other"):
+        for name, (launch, _) in calls[tag].items():
+            rc = launch()
+            if rc != 0:
+                raise RuntimeError(f"{tag} {name}: CUDA error {rc}")
+            times[name].append(_time(launch, args.reps))
+    torch.cuda.synchronize()
+    same = {}
+    for name in times:
+        a, b = calls["other"][name][1], calls["this"][name][1]
+        same[name] = [int((x.view(torch.int32) != y.view(torch.int32)).sum()) for x, y in zip(a, b)]
+        print(f"{name}: other / this / this / other ms "
+              + " / ".join(f"{t:.3f}" for t in times[name])
+              + f"; entries that differ between the builds {same[name]}", flush=True)
+    for name in ("K1_1024", "K1_5120", "K7_5120"):
+        if any(same[name]):
+            raise AssertionError(f"{name}: the two builds disagree")
+
+    # K8 and K10 on integer-valued inputs: every f32 sum exact in any order
+    gi = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    rows_bf16 = torch.randint(-2, 3, (65_536, D), generator=gi, device=dev).to(torch.bfloat16)
+    q1 = torch.randint(-2, 3, (1000, D), generator=gi, device=dev).to(torch.bfloat16)
+    ints = {tag: _calls(lib, q1, q1, qi1, qi1, rows_bf16, rows_i8[:65_536], scale[:65_536],
+                        stream) for tag, lib in libs.items()}
+    for name in ("K8_stride4", "K8_stride1", "K10"):
+        for tag in ints:
+            ints[tag][name][0]()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(ints["other"][name][1],
+                                                     ints["this"][name][1])):
+            raise AssertionError(f"{name}: the builds disagree on integer-valued inputs")
+    print("K8 (stride 4 and 1) and K10 on integer-valued inputs [1000, D] x [65536, D]: "
+          "bit-equal between the builds")
+    print(json.dumps({"card": smi, "docs": N, "dim": D, "ms": times, "differ": same}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,11 +9,24 @@
   K9 group_max_packed_int8_global (csrc/group_max_int8_global.cu): int8,
                                   one global scale, packed int32 max.
 
-K1 and K7 run on the TMA + wgmma main loop of csrc/dense_wgmma.cuh (a
-persistent grid, 128 x 256 output tiles); K8, K9 and K10
-(streaming_topk.py) on the mma.sync main loop of csrc/dense_common.cuh.
-TMA and the 16-byte loads of both loops need rows of a multiple of 16
-bytes and 16-byte aligned operands (_check_cuda_rows).
+K1, K7, K8 and K10 (streaming_topk.py) run on the TMA + wgmma main loop of
+csrc/dense_wgmma.cuh (a persistent grid, 128 x 256 output tiles); K9 on the
+mma.sync main loop of csrc/dense_common.cuh. TMA and the 16-byte loads of
+both loops need rows of a multiple of 16 bytes and 16-byte aligned operands
+(_check_cuda_rows); D has no other limit.
+
+Every entry point takes the JAX function's parameters by name, in order,
+with its defaults; the port's own extras come after them. What they mean
+here:
+  * n_real = 0 (the default) means every doc is real, as in JAX; None too.
+    The plain versions take an explicit count.
+  * tm has no effect: tiling belongs to the kernel. tn shapes K8's result
+    (its stride merge groups by the tn tile) and has no effect on the packed
+    kernels, whose outputs have ceil(N/128) columns (JAX's N/128 wherever
+    JAX accepts the call: it asserts N % tn == 0).
+  * exact_merge has no effect: every merge is exact (below).
+  * The int8 entry points name their corpus corpus_rows, [N, D], where JAX
+    names corpus_int, [D, N] (the layout note below).
 
 Counterpart of qpp_fusion_rag_tpu/ops/pallas/dense_topk.py. int8 corpora
 are row-major [N, D] (the one layout that serves the kernels and the
@@ -95,7 +108,8 @@ def _check_pair(q, corpus, dtype, transposed=False):
 
 
 def _n_real(n_real, N: int) -> int:
-    n_real = N if n_real is None else int(n_real)
+    """JAX's n_real: 0 or None means every doc is real."""
+    n_real = N if not n_real else int(n_real)
     if not 0 <= n_real <= N:
         raise ValueError(f"n_real={n_real} must be in [0, {N}]")
     return n_real
@@ -197,11 +211,14 @@ def group_max_packed_int8_plain(q_int, corpus_rows, d_scale, n_real: int):
 
 
 def group_max_packed_int8(q_int: torch.Tensor, corpus_rows: torch.Tensor,
-                          d_scale: torch.Tensor, n_real: int = None) -> torch.Tensor:
+                          d_scale: torch.Tensor, tm: int = 512, tn: int = 2048,
+                          n_real: int = 0) -> torch.Tensor:
     """-> packed group maxima [M, ceil(N/128)] f32: per 128-doc group, the
     max of float(int8 dot) * d_scale[n] with the doc's lane (n & 127) in the
-    low 7 mantissa bits; docs n >= n_real (default N) score -3e38.
-    CPU tensors take the plain version; CUDA tensors launch K1."""
+    low 7 mantissa bits; docs n >= n_real (0: every doc is real) score -3e38. tm and tn
+    have no effect. CPU tensors take the plain version; CUDA tensors launch
+    K1."""
+    del tm, tn
     n_real = _check_int8(q_int, corpus_rows, d_scale, n_real)
     if q_int.device.type == "cpu":
         return group_max_packed_int8_plain(q_int, corpus_rows, d_scale, n_real)
@@ -237,13 +254,15 @@ def group_max_packed_plain(q, corpus, n_real: int, transposed: bool = False):
     return _packed_max_plain(q.shape[0], N, n_real, scores, q.device)
 
 
-def group_max_packed(q: torch.Tensor, corpus: torch.Tensor, n_real: int = None,
-                     transposed: bool = False) -> torch.Tensor:
+def group_max_packed(q: torch.Tensor, corpus: torch.Tensor, tm: int = 256, tn: int = 2048,
+                     n_real: int = 0, transposed: bool = False) -> torch.Tensor:
     """bf16 q [M, D] x corpus [N, D] ([D, N] when transposed) -> packed
     group maxima [M, ceil(N/128)] f32: per 128-doc group, the max f32 score
     with the doc's lane in the low 7 mantissa bits; docs n >= n_real
-    (default N) score -3e38. CPU tensors take the plain version; CUDA
-    tensors launch K7, which reads the [D, N] layout in place."""
+    (0: every doc is real) score -3e38. tm and tn have no effect. CPU tensors take the
+    plain version; CUDA tensors launch K7, which reads the [D, N] layout in
+    place."""
+    del tm, tn
     M, N, D = _check_pair(q, corpus, torch.bfloat16, transposed)
     n_real = _n_real(n_real, N)
     if q.device.type == "cpu":
@@ -265,15 +284,16 @@ def group_max_packed(q: torch.Tensor, corpus: torch.Tensor, n_real: int = None,
 
 # ------------------------------------------------------------------ K8 ------
 
-def group_max_scores(q: torch.Tensor, corpus: torch.Tensor, n_real: int = None,
-                     stride: int = 1, tn: int = 2048):
+def group_max_scores(q: torch.Tensor, corpus: torch.Tensor, tm: int = 256, tn: int = 2048,
+                     n_real: int = 0, stride: int = 1):
     """bf16 q [M, D] x corpus [N, D] -> (vals [M, N_pad/(128 stride)] f32,
     ids int32 global doc ids), N_pad = N rounded up to a multiple of tn:
     per 128-doc group the max score and its first doc; docs n >= n_real
-    (default N) and the pad score -inf; stride > 1 merges group j of each
-    tn tile with j + g2, j + 2 g2, ... (g2 = tn/(128 stride)), the earlier
-    block winning ties. CPU tensors take the plain version; CUDA tensors
-    launch K8."""
+    (0: every doc is real) and the pad score -inf; stride > 1 merges group j of each tn
+    tile with j + g2, j + 2 g2, ... (g2 = tn/(128 stride)), the earlier
+    block winning ties. tm has no effect. CPU tensors take the plain
+    version; CUDA tensors launch K8."""
+    del tm
     M, N, D = _check_pair(q, corpus, torch.bfloat16)
     n_real = _n_real(n_real, N)
     if stride < 1 or tn < GROUP * stride or tn % (GROUP * stride):
@@ -318,11 +338,14 @@ def group_max_packed_int8_global_plain(q_int, corpus_rows, n_real: int):
 
 
 def group_max_packed_int8_global(q_int: torch.Tensor, corpus_rows: torch.Tensor,
-                                 n_real: int = None) -> torch.Tensor:
+                                 tm: int = 512, tn: int = 4096,
+                                 n_real: int = 0) -> torch.Tensor:
     """int8 q [M, D] x int8 corpus rows [N, D] under one global scale ->
     packed int32 group maxima [M, ceil(N/128)]: (dot << 7) | lane; docs
-    n >= n_real (default N) score -(1 << 24), which packs to INT32_MIN | lane.
-    CPU tensors take the plain version; CUDA tensors launch K9."""
+    n >= n_real (0: every doc is real) score -(1 << 24), which packs to INT32_MIN | lane.
+    tm and tn have no effect. CPU tensors take the plain version; CUDA
+    tensors launch K9."""
+    del tm, tn
     M, N, D = _check_pair(q_int, corpus_rows, torch.int8)
     n_real = _n_real(n_real, N)
     _check_int8_width(D)
@@ -352,14 +375,17 @@ def _pad_k(top_vals, top_ids, k):
     return top_vals, torch.where(torch.isfinite(top_vals), top_ids, -1)
 
 
-def dense_topk_int8(queries: torch.Tensor, corpus_rows: torch.Tensor,
-                    d_scale: torch.Tensor, k: int = 100):
+def pallas_dense_topk_int8(queries: torch.Tensor, corpus_rows: torch.Tensor,
+                           d_scale: torch.Tensor, k: int = 100, tm: int = 512, tn: int = 4096,
+                           exact_merge: bool = False):
     """Quantized fused dense top-k -> (scores [B, k], ids [B, k] int32).
 
     Queries quantize per row; the kernel's packed group maxima go through
     an exact top-k with lax.top_k's tie order; the per-query scale
     multiplies only the k winners (a positive row factor never reorders a
-    row). Counterpart of pallas_dense_topk_int8(exact_merge=True)."""
+    row). The corpus is int8 rows [N, D] with scales [N]; the result is
+    JAX's with exact_merge=True, whatever tm, tn and exact_merge say."""
+    del tm, tn, exact_merge
     q_int, q_scale = quantize_rows(queries.to(torch.float32))
     vals = group_max_packed_int8(q_int, corpus_rows, d_scale)
     tv, tx = topk_first(vals, min(k, vals.shape[-1]))
@@ -370,16 +396,16 @@ def dense_topk_int8(queries: torch.Tensor, corpus_rows: torch.Tensor,
 
 
 def pallas_dense_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int = 100,
-                      tn: int = 2048, exact_merge: bool = False, stride: int = 1,
-                      packed: bool = True, transposed: bool = False):
+                      tm: int = None, tn: int = 2048, exact_merge: bool = False,
+                      stride: int = 1, packed: bool = True, transposed: bool = False):
     """Fused bf16 dense top-k -> (scores [B, k], ids [B, k] int32).
 
     Queries round to the corpus dtype (bf16). packed (default): K7's packed
     group maxima, an exact merge, ids from (column, lane), scores with the
     lane bits cleared (<= 2^-16 relative). packed=False: K8's (max, argmax)
     at `stride`, grouped by the tn tile. The merge is always exact, so
-    `exact_merge` (kept for the JAX signature) changes nothing."""
-    del exact_merge
+    `exact_merge` changes nothing; nor does tm."""
+    del tm, exact_merge
     if packed and stride != 1:
         raise ValueError("packed=True supports stride=1 only; pass packed=False "
                          "for stride coarsening")
@@ -403,12 +429,15 @@ def pallas_dense_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int = 100,
 
 
 def pallas_dense_topk_int8_global(queries: torch.Tensor, corpus_rows: torch.Tensor,
-                                  corpus_scale, k: int = 100):
+                                  corpus_scale, k: int = 100, tm: int = 512, tn: int = 4096,
+                                  exact_merge: bool = False):
     """Global-scale int8 fused top-k -> (scores [B, k], ids [B, k] int32):
     queries quantize per row, K9 reduces in int32, the exact merge ranks
     the packed ints, and both scales multiply the k winners only. The
     corpus is rows [N, D] int8 (quantize_global) where the JAX function
-    takes [D, N]; the result is JAX's with exact_merge=True."""
+    takes [D, N]; the result is JAX's with exact_merge=True, whatever tm, tn
+    and exact_merge say."""
+    del tm, tn, exact_merge
     q_int, q_scale = quantize_rows(queries.to(torch.float32))
     _check_int8_width(queries.shape[1])
     vals = group_max_packed_int8_global(q_int, corpus_rows)
@@ -429,22 +458,29 @@ def _project(queries, view_proj):
 
 
 def pallas_multi_view_topk(queries: torch.Tensor, view_proj: torch.Tensor,
-                           corpus: torch.Tensor, k: int = 100, transposed: bool = False):
+                           corpus: torch.Tensor, k: int = 100, tm: int = None, tn: int = 2048,
+                           exact_merge: bool = False, stride: int = 1,
+                           transposed: bool = False):
     """R-view fused dense top-k on K7: the queries project in f32, then
-    round to bf16 inside pallas_dense_topk. The corpus is bf16 [N, Dv], or
-    [Dv, N] with transposed=True. -> (scores [R, B, k], ids [R, B, k])."""
+    round to bf16 inside pallas_dense_topk, which gets the other parameters
+    as JAX forwards them. The corpus is bf16 [N, Dv], or [Dv, N] with
+    transposed=True. -> (scores [R, B, k], ids [R, B, k])."""
     qv = _project(queries, view_proj)
     R, B, Dv = qv.shape
-    vals, ids = pallas_dense_topk(qv.reshape(R * B, Dv), corpus, k=k, transposed=transposed)
+    vals, ids = pallas_dense_topk(qv.reshape(R * B, Dv), corpus, k=k, tm=tm, tn=tn,
+                                  exact_merge=exact_merge, stride=stride,
+                                  transposed=transposed)
     return vals.reshape(R, B, k), ids.reshape(R, B, k)
 
 
 def pallas_multi_view_topk_int8(queries: torch.Tensor, view_proj: torch.Tensor,
                                 corpus_rows: torch.Tensor, d_scale: torch.Tensor,
-                                k: int = 100):
+                                k: int = 100, tm: int = 512, tn: int = 4096,
+                                exact_merge: bool = False):
     """R-view quantized dense top-k on K1 over int8 rows [N, Dv] and
     per-doc scales [N]. -> (scores [R, B, k], ids [R, B, k])."""
     qv = _project(queries, view_proj)
     R, B, Dv = qv.shape
-    vals, ids = dense_topk_int8(qv.reshape(R * B, Dv), corpus_rows, d_scale, k=k)
+    vals, ids = pallas_dense_topk_int8(qv.reshape(R * B, Dv), corpus_rows, d_scale, k=k,
+                                       tm=tm, tn=tn, exact_merge=exact_merge)
     return vals.reshape(R, B, k), ids.reshape(R, B, k)

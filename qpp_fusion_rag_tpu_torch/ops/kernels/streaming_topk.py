@@ -1,13 +1,16 @@
-"""K10: the streaming dense group max (csrc/streaming_group_max.cu) and
-the top-k built on it.
+"""K10: the streaming dense group max and the top-k built on it.
 
 Counterpart of qpp_fusion_rag_tpu/ops/pallas/streaming_topk.py
 (_streaming_group_max, streaming_dense_topk). The result is K8's at
-stride 1 over a corpus padded to a multiple of SUPER docs; the schedule
-differs: each block keeps one 128-doc group resident and walks all the
-queries, so the corpus is read from device memory once. The merge is exact
-(``topk_first``) where the JAX function takes approx_max_k (which returns
-lax.top_k's result on the CPU).
+stride 1 over a corpus padded to a multiple of SUPER docs, and so is the
+kernel: the C entry qfr_streaming_group_max (csrc/group_max_scores.cu)
+launches K8's TMA + wgmma kernel at stride 1. What makes the TPU kernel
+streaming, the corpus leaving device memory once while the queries stay
+close, comes from that kernel's persistent grid: the query tiles of one
+doc tile run side by side, and the queries stay in L2. Any D whose bf16
+rows are a multiple of 16 bytes. The merge is exact (``topk_first``) where
+the JAX function takes approx_max_k (which returns lax.top_k's result on
+the CPU).
 """
 
 from __future__ import annotations
@@ -26,17 +29,6 @@ from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import (
 from qpp_fusion_rag_tpu_torch.ops.segment import topk_first
 
 SUPER = 16_384        # the JAX kernel's docs per grid step: N pads to a multiple
-SMEM_LIMIT = 232_448  # bytes of shared memory a block may opt into (H100)
-_SMEM_STATIC = 2 * GROUP * 8   # the kernel's (max, argmax) exchange arrays
-_SLICE, _LDS = 64, 80          # dense_common.cuh: K bytes per slice, staged row pitch
-
-
-def _smem_bytes(D: int) -> int:
-    """Shared memory of one K10 block at width D: 128 resident doc rows
-    (zero-padded to whole 64-byte slices, plus a 16-byte pad), one staged
-    query slice, the exchange arrays."""
-    pitch = -(-2 * D // _SLICE) * _SLICE + 16
-    return GROUP * pitch + GROUP * _LDS + _SMEM_STATIC
 
 
 def streaming_group_max_plain(q, corpus, n_real: int):
@@ -44,20 +36,17 @@ def streaming_group_max_plain(q, corpus, n_real: int):
     return group_max_scores_plain(q, corpus, n_real, stride=1, tn=SUPER)
 
 
-def streaming_group_max(q: torch.Tensor, corpus: torch.Tensor, n_real: int = None):
+def streaming_group_max(q: torch.Tensor, corpus: torch.Tensor, n_real: int = 0):
     """bf16 q [M, D] x corpus [N, D] -> (vals [M, N_pad/128] f32, ids int32
     global doc ids), N_pad = N rounded up to a multiple of SUPER: per
-    128-doc group the max score and its first doc; docs n >= n_real (default
-    N) and the pad score -inf. CPU tensors take the plain version; CUDA
-    tensors launch K10."""
+    128-doc group the max score and its first doc; docs n >= n_real (0:
+    every doc is real) and the pad score -inf. CPU tensors take the plain
+    version; CUDA tensors launch K10."""
     M, N, D = _check_pair(q, corpus, torch.bfloat16)
     n_real = _n_real(n_real, N)
     if q.device.type == "cpu":
         return streaming_group_max_plain(q, corpus, n_real)
     _check_cuda_rows(2 * D, q, corpus)
-    if _smem_bytes(D) > SMEM_LIMIT:
-        raise ValueError(f"D={D}: 128 resident bf16 doc rows need {_smem_bytes(D)} bytes "
-                         f"of shared memory, above {SMEM_LIMIT} (D <= 832)")
     n_groups = -(-N // SUPER) * SUPER // GROUP
     vals = torch.empty((M, n_groups), dtype=torch.float32, device=q.device)
     ids = torch.empty((M, n_groups), dtype=torch.int32, device=q.device)

@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from qpp_fusion_rag_tpu_torch.ops import fusion as F
-from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import dense_topk_int8
+from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import pallas_dense_topk_int8
 from qpp_fusion_rag_tpu_torch.ops.qpp import normalize_qpp_with
 from qpp_fusion_rag_tpu_torch.ops.sparse import (
     sparse_score_topk_q8,
@@ -110,7 +110,7 @@ def dense_view_topk(q_emb: torch.Tensor, corpus_rows: torch.Tensor,
                     d_scale: torch.Tensor, k: int):
     """Dense view: int8 scores with the fused group max (K1), exact merge.
     -> (scores [B, k], ids [B, k])."""
-    return dense_topk_int8(q_emb, corpus_rows, d_scale, k=k)
+    return pallas_dense_topk_int8(q_emb, corpus_rows, d_scale, k=k)
 
 
 def score_candidates(

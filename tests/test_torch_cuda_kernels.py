@@ -2,7 +2,10 @@
 an NVIDIA GPU, at small shapes, plus the launch counters and the wrappers'
 refusals.
 
-The dense bf16 kernels (K7, K8, K10) are held bit-equal to their plain
+K1, K7, K8 and K10 share one TMA + wgmma main loop (csrc/dense_wgmma.cuh);
+K8 and K10 are one kernel there, K10 being K8 at stride 1 over a corpus
+padded to a multiple of 16,384 docs. The dense bf16 kernels (K7, K8, K10)
+are held bit-equal to their plain
 versions on integer-valued inputs (every f32 partial sum is then exact in
 any order), ties, ragged N and zero scores included; on random inputs only
 the summation order differs, and the tolerance is the one of
@@ -446,8 +449,8 @@ def test_dense_topk_int8_matches_cpu(cuda):
     q = torch.randn(64, 128, generator=g)
     rows, scale = dense_topk.quantize_rows(torch.randn(20_000, 128, generator=g))
     scale = scale[:, 0].contiguous()
-    s_d, i_d = dense_topk.dense_topk_int8(q.to(cuda), rows.to(cuda), scale.to(cuda), k=100)
-    s_c, i_c = dense_topk.dense_topk_int8(q, rows, scale, k=100)
+    s_d, i_d = dense_topk.pallas_dense_topk_int8(q.to(cuda), rows.to(cuda), scale.to(cuda), k=100)
+    s_c, i_c = dense_topk.pallas_dense_topk_int8(q, rows, scale, k=100)
     assert torch.equal(i_d.cpu(), i_c)
     assert torch.equal(s_d.cpu(), s_c)
 
@@ -547,6 +550,46 @@ def test_k8_matches_plain_bits(cuda, M, N, D, stride, tn, n_real):
     assert torch.equal(ids.cpu(), r_ids)
 
 
+@pytest.mark.parametrize("M,N,D,stride,tn,n_real", [
+    (200, 5000, 96, 1, 256, None),        # M and N ragged, stride 1
+    (129, 4100, 128, 2, 512, 4000),       # stride 2, n_real inside the last tile
+    (256, 8192, 768, 4, 512, None),       # g2 == 1
+    (130, 2000, 64, 2, 768, 1999),        # odd g2 (3), all-pad groups, 9 columns
+    (64, 700, 64, 3, 1152, None),         # odd g2 (3), N < tn, 3 columns
+    (5, 77, 16, 1, 2048, None),           # N < 128, D below one 128-byte stage
+    (300, 300, 32, 4, 512, 250),          # one output column
+    (1024, 20480, 256, 4, 2048, None)])   # many units per cluster: the carry resets
+def test_k8_wgmma_cases_match_plain_bits(cuda, M, N, D, stride, tn, n_real):
+    """K8 on the wgmma loop: the stride merge carried across a unit's doc
+    tiles, at every shape of its schedule; bit-equal on integer inputs,
+    ties inside and across blocks included."""
+    q = _int_bf16((M, D), M * N + stride, -2, 2)
+    c = _int_bf16((N, D), N + D + tn, -2, 2)
+    vals, ids = _counted("group_max_scores", lambda: dense_topk.group_max_scores(
+        q.to(cuda), c.to(cuda), n_real=n_real, stride=stride, tn=tn))
+    r_vals, r_ids = dense_topk.group_max_scores_plain(q, c, N if n_real is None else n_real,
+                                                      stride, tn)
+    assert vals.shape == r_vals.shape == (M, -(-N // tn) * tn // (128 * stride))
+    assert torch.equal(_bits(vals), r_vals.view(torch.int32))
+    assert torch.equal(ids.cpu(), r_ids)
+
+
+@pytest.mark.parametrize("stride,tn,D", [(1, 2048, 768), (2, 768, 1024), (4, 1024, 1024)])
+def test_k8_random_strides_within_tolerance(cuda, stride, tn, D):
+    q, c = _rand_bf16((300, D), stride + D), _rand_bf16((6000, D), tn)
+    vals, ids = dense_topk.group_max_scores(q.to(cuda), c.to(cuda), stride=stride, tn=tn)
+    r_vals, r_ids = dense_topk.group_max_scores_plain(q.to(cuda), c.to(cuda), 6000, stride, tn)
+    s64, tol = _tol(q, c)
+    rows = torch.arange(300)[:, None]
+    real = r_ids.cpu().long() < 6000          # the all-pad columns: -inf, equal
+    assert torch.equal(vals.cpu()[~real], r_vals.cpu()[~real])
+    assert torch.equal(ids.cpu()[~real], r_ids.cpu()[~real])
+    ids, r_ids = ids.cpu().long().clamp(max=5999), r_ids.cpu().long().clamp(max=5999)
+    t = torch.maximum(tol[rows, ids], tol[rows, r_ids])
+    assert ((vals.cpu().double() - r_vals.cpu().double()).abs() <= t)[real].all()
+    assert ((s64[rows, ids] - s64[rows, r_ids]).abs() <= t)[real].all()
+
+
 def test_k8_random_within_tolerance(cuda):
     q, c = _rand_bf16((192, 768), 3), _rand_bf16((4096, 768), 4)
     vals, ids = dense_topk.group_max_scores(q.to(cuda), c.to(cuda), stride=4)
@@ -581,6 +624,21 @@ def test_k10_matches_plain_bits(cuda, M, N, D, n_real):
         q.to(cuda), c.to(cuda), n_real=n_real))
     r_vals, r_ids = streaming_topk.streaming_group_max_plain(q, c, N if n_real is None else n_real)
     assert vals.shape[1] == -(-N // streaming_topk.SUPER) * streaming_topk.SUPER // 128
+    assert torch.equal(_bits(vals), r_vals.view(torch.int32))
+    assert torch.equal(ids.cpu(), r_ids)
+
+
+@pytest.mark.parametrize("M,N,D,n_real", [(129, 16384, 848, None), (200, 20000, 1024, 19999),
+                                           (1024, 40000, 1024, None), (7, 100, 1024, None)])
+def test_k10_takes_any_width_matches_plain_bits(cuda, M, N, D, n_real):
+    """D 848 and 1024, above the 832 that the block-resident K10 of the
+    mma.sync loop could hold in shared memory: the wgmma loop streams K in
+    128-byte stages, so any D of 16-byte rows runs."""
+    q = _int_bf16((M, D), M + D, -2, 2)
+    c = _int_bf16((N, D), N + D, -2, 2)
+    vals, ids = _counted("streaming_group_max", lambda: streaming_topk.streaming_group_max(
+        q.to(cuda), c.to(cuda), n_real=n_real))
+    r_vals, r_ids = streaming_topk.streaming_group_max_plain(q, c, N if n_real is None else n_real)
     assert torch.equal(_bits(vals), r_vals.view(torch.int32))
     assert torch.equal(ids.cpu(), r_ids)
 
@@ -642,7 +700,9 @@ def test_dense_wrappers_refuse_bad_inputs(cuda):
         dense_topk.group_max_packed_int8_global(
             torch.zeros((2, 24), dtype=torch.int8, device=cuda),
             torch.zeros((128, 24), dtype=torch.int8, device=cuda))
-    with pytest.raises(ValueError, match="D <= 832"):
-        streaming_topk.streaming_group_max(
-            torch.zeros((2, 848), dtype=torch.bfloat16, device=cuda),
-            torch.zeros((128, 848), dtype=torch.bfloat16, device=cuda))
+    wide = torch.zeros((2, 848), dtype=torch.bfloat16, device=cuda)   # no D limit
+    vals, ids = streaming_topk.streaming_group_max(wide, torch.ones((128, 848),
+                                                                    dtype=torch.bfloat16,
+                                                                    device=cuda))
+    assert (vals[:, 0] == 0).all() and torch.isneginf(vals[:, 1:]).all()   # 127 pad groups
+    assert (ids == torch.arange(128, device=cuda) * 128).all()

@@ -121,9 +121,13 @@ def test_k7_plain_random_within_tolerance():
 
 # ----------------------------------------------------------------- K8 ------
 
-@pytest.mark.parametrize("stride,tn", [(1, 256), (4, 512), (4, 1024), (2, 1024)])
+@pytest.mark.parametrize("stride,tn", [(1, 256), (4, 512), (4, 1024), (2, 1024),
+                                       (2, 768), (3, 1152)])
 @pytest.mark.parametrize("n", [2048, 1900])
 def test_k8_plain_matches_pallas_bits(stride, tn, n):
+    """g2 = tn / (128 stride) of 1 (tn 512, stride 4) and odd (3: tn 768
+    at stride 2, tn 1152 at stride 3); ragged corpora whose last tn tile
+    holds whole groups of pad docs (-inf, the group's first doc as id)."""
     rng = np.random.default_rng(stride * tn + n)
     q = _ints(rng, (16, 64), -2, 2)          # narrow range: ties across blocks too
     c = _ints(rng, (n, 64), -2, 2)
@@ -193,6 +197,20 @@ def test_k10_plain_matches_pallas_bits():
     jc, _ = _bf(_pad_rows(c, JS.SUPER))
     _, tc = _bf(c)
     rv, ri = JS._streaming_group_max(jq, jc, n_real=16_000)
+    ov, oi = TS.streaming_group_max(tq, tc)
+    np.testing.assert_array_equal(_bits(ov.numpy()), _bits(rv))
+    np.testing.assert_array_equal(oi.numpy(), np.asarray(ri))
+
+
+def test_k10_plain_matches_pallas_bits_at_d1024():
+    """D 1024 (the large BGE / e5 encoders' width), which the card's
+    kernel takes as any other D: one 512-row slab, one 16384-doc
+    super-tile."""
+    rng = np.random.default_rng(1024)
+    q = _ints(rng, (512, 1024), -2, 2)
+    c = _ints(rng, (JS.SUPER, 1024), -2, 2)
+    (jq, tq), (jc, tc) = _bf(q), _bf(c)
+    rv, ri = JS._streaming_group_max(jq, jc)
     ov, oi = TS.streaming_group_max(tq, tc)
     np.testing.assert_array_equal(_bits(ov.numpy()), _bits(rv))
     np.testing.assert_array_equal(oi.numpy(), np.asarray(ri))

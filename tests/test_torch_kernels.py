@@ -234,7 +234,7 @@ def test_dense_topk_int8_matches_exact_merge(N, k):
     js, ji = map(np.asarray, pallas_dense_topk_int8(
         jnp.asarray(q), jnp.asarray(c_int), jnp.asarray(d_scale), k=k,
         exact_merge=True))
-    ts, ti = dense_topk.dense_topk_int8(
+    ts, ti = dense_topk.pallas_dense_topk_int8(
         torch.as_tensor(q), torch.as_tensor(np.ascontiguousarray(c_int.T)),
         torch.as_tensor(d_scale[0]), k=k)
     kk = min(k, -(-N // 128))   # the port has ceil(N/128) groups, JAX N_pad/128

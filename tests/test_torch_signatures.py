@@ -1,9 +1,11 @@
 """Port parity, signatures: the port's public functions take the JAX
 functions' parameters by the same names and in the same order (the port's
 own extras after them), and the calls the JAX package's callers make run on
-the port and agree with JAX: bit for bit on integer paths and pools, within
-rtol 4e-6 on the rescore's f32 sums. The ensemble step's sparse_mode
-defaults to JAX's "sort", which the port does not serve yet: it raises."""
+the port and agree with JAX: bit for bit on integer paths, pools and the
+dense kernels' integer-valued inputs, within rtol 4e-6 on the rescore's f32
+sums. The ensemble step's sparse_mode defaults to JAX's "sort", which the
+port does not serve yet: it raises. The dense kernel entry points take
+JAX's n_real = 0 as "every doc is real"."""
 
 import inspect
 
@@ -15,12 +17,23 @@ import torch
 from qpp_fusion_rag_tpu.data.synthetic import zipf_bm25_csr, zipf_queries
 from qpp_fusion_rag_tpu.ops import dense as JD
 from qpp_fusion_rag_tpu.ops import sparse as JSP
+from qpp_fusion_rag_tpu.ops.pallas import dense_topk as JK
+from qpp_fusion_rag_tpu.ops.pallas import streaming_topk as JS
 from qpp_fusion_rag_tpu.pipeline import ensemble as JE
 from qpp_fusion_rag_tpu.retrievers import dense as JR
 from qpp_fusion_rag_tpu_torch.ops import dense as TD
 from qpp_fusion_rag_tpu_torch.ops import sparse as TSP
+from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk as TK
+from qpp_fusion_rag_tpu_torch.ops.kernels import streaming_topk as TS
 from qpp_fusion_rag_tpu_torch.pipeline import ensemble as TE
 from qpp_fusion_rag_tpu_torch.retrievers import dense as TR
+
+
+# The one parameter the port names otherwise: its int8 entry points take the
+# corpus as int8 ROWS [N, D], corpus_rows, where JAX takes a [D, N] copy,
+# corpus_int. One row-major layout serves the kernels and the rerank
+# gather (ops/kernels/dense_topk.py), so the port keeps no second copy.
+PORT_NAME = {"corpus_int": "corpus_rows"}
 
 
 def _names(fn):
@@ -36,14 +49,26 @@ def _names(fn):
     (JSP.sparse_score_topk_q8_rescored, TSP.sparse_score_topk_q8_rescored),
     (JSP.sparse_exact_rescore, TSP.sparse_exact_rescore),
     (JSP._exact_rescore_scores, TSP._exact_rescore_scores),
+    (JK.group_max_packed_int8, TK.group_max_packed_int8),
+    (JK.group_max_packed, TK.group_max_packed),
+    (JK.group_max_scores, TK.group_max_scores),
+    (JK.group_max_packed_int8_global, TK.group_max_packed_int8_global),
+    (JK.pallas_dense_topk, TK.pallas_dense_topk),
+    (JK.pallas_dense_topk_int8, TK.pallas_dense_topk_int8),
+    (JK.pallas_dense_topk_int8_global, TK.pallas_dense_topk_int8_global),
+    (JK.pallas_multi_view_topk, TK.pallas_multi_view_topk),
+    (JK.pallas_multi_view_topk_int8, TK.pallas_multi_view_topk_int8),
+    (JS._streaming_group_max, TS.streaming_group_max),
+    (JS.streaming_dense_topk, TS.streaming_dense_topk),
 ], ids=lambda f: getattr(f, "__qualname__", None))
 def test_port_takes_jax_parameters_in_jax_order(jax_fn, port_fn):
-    j, t = _names(jax_fn), _names(port_fn)
+    j = [PORT_NAME.get(n, n) for n in _names(jax_fn)]
+    t = _names(port_fn)
     assert t[:len(j)] == j
     jp, tp = inspect.signature(jax_fn).parameters, inspect.signature(port_fn).parameters
-    for name in j:                                 # and their defaults
+    for name in jp:                                # and their defaults
         if jp[name].default is not inspect.Parameter.empty:
-            assert tp[name].default == jp[name].default, name
+            assert tp[PORT_NAME.get(name, name)].default == jp[name].default, name
 
 
 # ------------------------------------------------------------- dense ------
@@ -101,6 +126,95 @@ def test_dense_index_search_jax_style_call_matches_jax():
     assert tr.exact is True
     for a, b in zip(tr.search_embeddings(q, k=25), jr.search_embeddings(q, k=25)):
         np.testing.assert_array_equal(a, b)
+
+
+def _bits(x):
+    return np.asarray(x).view(np.int32)
+
+
+def _bf(x):
+    return jnp.asarray(x, jnp.bfloat16), torch.as_tensor(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("stride,tn,n_real", [(1, 256, 1900), (4, 512, 1700), (4, 512, 0),
+                                              (2, 768, 0)])
+def test_group_max_scores_jax_positional_call_matches_jax(stride, tn, n_real):
+    """group_max_scores(q, c, tm, tn, n_real, stride), JAX's order, on a
+    corpus of a multiple of tn docs (JAX asserts it): integer-valued bf16
+    inputs, so bit for bit. n_real 0: every doc is real, the zero pad docs
+    too."""
+    rng = np.random.default_rng(stride + tn + n_real)
+    q = rng.integers(-2, 3, (16, 64)).astype(np.float32)
+    c = rng.integers(-2, 3, (2048 if tn != 768 else 2304, 64)).astype(np.float32)
+    if n_real:
+        c[n_real:] = 0
+    (jq, tq), (jc, tc) = _bf(q), _bf(c)
+    rv, ri = JK.group_max_scores(jq, jc, 8, tn, n_real, stride)
+    ov, oi = TK.group_max_scores(tq, tc, 8, tn, n_real, stride)
+    np.testing.assert_array_equal(_bits(ov.numpy()), _bits(rv))
+    np.testing.assert_array_equal(oi.numpy(), np.asarray(ri))
+
+
+@pytest.mark.parametrize("stride,tn", [(1, 256), (4, 1024)])
+def test_pallas_dense_topk_jax_positional_call_matches_jax(stride, tn):
+    """pallas_dense_topk(q, c, k, tm, tn, exact_merge, stride, packed), JAX's
+    order, the unpacked route (K8) on a ragged corpus."""
+    rng = np.random.default_rng(stride)
+    q = rng.integers(-4, 5, (16, 64)).astype(np.float32)
+    c = rng.integers(-4, 5, (1900, 64)).astype(np.float32)
+    jc, tc = _bf(c)
+    js, ji = JK.pallas_dense_topk(jnp.asarray(q), jc, 40, None, tn, True, stride, False)
+    ts, ti = TK.pallas_dense_topk(torch.as_tensor(q), tc, 40, None, tn, True, stride, False)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("kernel", ["group_max_scores", "group_max_packed",
+                                    "group_max_packed_int8", "group_max_packed_int8_global",
+                                    "streaming_group_max"])
+def test_n_real_zero_means_every_doc_is_real(kernel):
+    """JAX's default n_real = 0 is "no padding": every doc of the corpus is
+    real and none is masked. The corpora hold a multiple of JAX's tile, as
+    JAX asserts; integer-valued inputs, bit for bit."""
+    rng = np.random.default_rng(len(kernel))
+    if kernel == "streaming_group_max":
+        q = rng.integers(-2, 3, (512, 32)).astype(np.float32)    # one 512-row slab
+        c = rng.integers(-2, 3, (JS.SUPER, 32)).astype(np.float32)
+        (jq, tq), (jc, tc) = _bf(q), _bf(c)
+        rv, ri = JS._streaming_group_max(jq, jc, n_real=0)
+        ov, oi = TS.streaming_group_max(tq, tc, n_real=0)
+        np.testing.assert_array_equal(_bits(ov.numpy()), _bits(rv))
+        np.testing.assert_array_equal(oi.numpy(), np.asarray(ri))
+        return
+    if kernel in ("group_max_scores", "group_max_packed"):
+        q = rng.integers(-4, 5, (16, 64)).astype(np.float32)
+        c = rng.integers(-4, 5, (512, 64)).astype(np.float32)
+        c[:, :8] = np.abs(c[:, :8])           # nonzero group maxima (module note of
+        (jq, tq), (jc, tc) = _bf(q), _bf(c)   # test_torch_dense.py on denormals)
+        ref = getattr(JK, kernel)(jq, jc, tm=8, tn=256, n_real=0)
+        out = getattr(TK, kernel)(tq, tc, tm=8, tn=256, n_real=0)
+        if kernel == "group_max_scores":
+            np.testing.assert_array_equal(out[1].numpy(), np.asarray(ref[1]))
+            ref, out = ref[0], out[0]
+        np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
+        assert (out.numpy() > TK.NEG_FINITE / 2).all()          # no doc masked
+        return
+    q = rng.integers(-127, 128, (16, 96)).astype(np.int8)
+    c = rng.integers(-127, 128, (512, 96)).astype(np.int8)
+    jc, tc = jnp.asarray(c.T), torch.as_tensor(c)
+    if kernel == "group_max_packed_int8":
+        scale = rng.uniform(0.5, 2.0, 512).astype(np.float32)
+        ref = JK.group_max_packed_int8(jnp.asarray(q), jc, jnp.asarray(scale[None]), tm=8,
+                                       tn=256, n_real=0)
+        out = TK.group_max_packed_int8(torch.as_tensor(q), tc, torch.as_tensor(scale), tm=8,
+                                       tn=256, n_real=0)
+        np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
+        assert (out.numpy() > TK.NEG_FINITE / 2).all()
+    else:
+        ref = JK.group_max_packed_int8_global(jnp.asarray(q), jc, tm=8, tn=256, n_real=0)
+        out = TK.group_max_packed_int8_global(torch.as_tensor(q), tc, tm=8, tn=256, n_real=0)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+        assert ((out.numpy() >> 7) > TK.INT8_PAD).all()
 
 
 # ------------------------------------------------------------ sparse ------
