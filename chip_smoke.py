@@ -20,7 +20,7 @@ one q8r BM25 call at 8192 candidates (the pool's full-sort branch), and one
 q8 and one q8r SPLADE call of 32-term queries (rows of 65,536 keys: K2 on
 four-CTA clusters), with K2, K4 and K5 then timed alone at those rows. The
 registers and spill bytes that ptxas reported for the bitonic kernels (K2,
-K4, K5), for K6 and for the wgmma group-max instances (K1, K7, K8 / K10)
+K4, K5), for K6 and for the wgmma group-max instances (K1, K7, K8 / K10, K9)
 are printed after the build. The dense flagship follows (R = 5 views, 5,120
 scoring rows per batch): K7-K10 against their plain versions on the full
 corpus (K7 in both layouts; K1 again at the 5,120 rows; K8 and K10 also at
@@ -138,10 +138,11 @@ def template_args(mangled: str, at: int):
 def ptxas_summary(build_log: str):
     """Registers and spill bytes that ptxas reported (-Xptxas -v) for each
     kernel of the bitonic sources (K2, K4, K5), of K6 and of the wgmma group
-    max (K1, K7, K8 / K10). -> {kernel<template args>: {"source",
+    max (K1, K7, K8 / K10, K9). -> {kernel<template args>: {"source",
     "registers", "stack", "spill_stores", "spill_loads"}}."""
     sources = ("bitonic_segsum.cu", "bitonic_topp.cu", "bitonic_sort.cu", "rescore_match.cu",
-               "dense_topk_int8.cu", "group_max_packed.cu", "group_max_scores.cu")
+               "dense_topk_int8.cu", "group_max_packed.cu", "group_max_scores.cu",
+               "group_max_int8_global.cu")
     out, src, fn = {}, None, None
     for line in build_log.splitlines():
         if line.startswith("== "):

@@ -1,11 +1,13 @@
 // The Hopper main loop of the dense group-max kernels K1 (dense_topk_int8.cu,
-// s8), K7 (group_max_packed.cu, bf16, corpus as rows [N, D] or as [D, N])
-// and K8 / K10 (group_max_scores.cu, bf16 rows, (max, first argmax) per
-// group): TMA loads into a ring of shared-memory stages, wgmma on two
-// consumer warpgroups, a persistent grid of two-CTA clusters. One kernel
-// template, group_max_kernel, runs them all; an epilogue policy (PackedMax
-// for K1 and K7, FirstArgmax for K8 and K10) says which docs each tile
-// holds and what the consumers make of its accumulators.
+// s8 with per-doc scales), K7 (group_max_packed.cu, bf16, corpus as rows
+// [N, D] or as [D, N]), K8 / K10 (group_max_scores.cu, bf16 rows, (max,
+// first argmax) per group) and K9 (group_max_int8_global.cu, s8 under one
+// global scale, an int32 packed max): TMA loads into a ring of
+// shared-memory stages, wgmma on two consumer warpgroups, a persistent grid
+// of two-CTA clusters. One kernel template, group_max_kernel, runs them
+// all; an epilogue policy (PackedMax for K1 and K7, PackedIMax for K9,
+// FirstArgmax for K8 and K10) says which docs each tile holds and what the
+// consumers make of its accumulators.
 //
 // One block of 384 threads per SM computes output tiles of 128 queries x
 // 256 docs (two 128-doc groups, each its own TMA box, so they need not be
@@ -59,6 +61,7 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -77,6 +80,7 @@ constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kTransBox = 64;            // docs (and k-rows) per [D, N] TMA box
 constexpr int kCluster = 2;              // CTAs per cluster: two query tiles, one doc tile
 constexpr float kNegFinite = -3.0e38f;   // packed pad score: finite, so no NaN
+constexpr int kPadI32 = -(1 << 24);      // K9's pad score: (pad << 7) is INT_MIN
 
 struct Smem {
   uint8_t a[kStages][kABytes];
@@ -220,6 +224,7 @@ __device__ __forceinline__ void fence_acc(T (&d)[128]) {
       QFR_WG_D16(c, 64), QFR_WG_D16(c, 80), QFR_WG_D16(c, 96), QFR_WG_D16(c, 112)
 
 // d (+)= A[64 x 32 bytes] . B[256 x 32 bytes]^T; scale_d = 0 overwrites d.
+// kScaled: the consumers load and stage each doc tile's per-doc scales.
 struct S8 {
   using Acc = int;
   static constexpr int kElem = 1;          // bytes per value
@@ -235,6 +240,12 @@ struct S8 {
         : QFR_WG_D128("r")
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
+};
+
+// The same product with no scale traffic (K9: one global scale, applied
+// by the caller to the k winners only).
+struct S8Unscaled : S8 {
+  static constexpr bool kScaled = false;
 };
 
 struct Bf16 {
@@ -272,7 +283,7 @@ struct Consumer {
   __device__ __forceinline__ int row(int h) const { return 64 * c + 16 * warp + g + 8 * h; }
 };
 
-// The two epilogue policies. Work is handed out in units: a pair of query
+// The epilogue policies. Work is handed out in units: a pair of query
 // tiles x one unit of steps() doc tiles. Half `half` of doc tile `step` of
 // unit u is the 128 docs from doc0(u, half) + step * step_docs(); CTA
 // `half` of the cluster loads it and multicasts it to both. The consumers
@@ -281,15 +292,9 @@ struct Consumer {
 // CTA an SM; setmaxnreg does not raise what ptxas allots), of which the
 // consumers' 128 accumulators take most: an epilogue must live on ~20.
 
-// K1, K7: unit u is doc tile u (docs 256 u .. 256 u + 255), one step.
-//   out[m, g] = max over the 128 docs n of group g of
-//     pack(score(m, n), lane = n & 127),  pack(v, l) = bits(v) & ~0x7F | l,
-//   score = float(acc) * scale[n] (Op::kScaled, exact int32 -> f32 and ONE
-//   rounding of the product, __fmul_rn) or acc, and -3e38 for n >= n_real;
-//   the max is a FLOAT max (fmaxf). Built without flush-to-zero: a zero
-//   score packs into a denormal that must survive the max.
-struct PackedMax {
-  float* out;                               // [M, ceil(N / 128)]
+// The packed group maxima of K1, K7 and K9: unit u is doc tile u (docs
+// 256 u .. 256 u + 255), one step, nothing carried between tiles.
+struct PackedTile {
   struct Carry {};
   static __device__ __forceinline__ Carry carry(Smem&, int) { return {}; }
 
@@ -298,15 +303,57 @@ struct PackedMax {
   __device__ __forceinline__ int doc0(int u, int half) const {
     return u * kBN + half * (kBN / kCluster);
   }
+  __device__ __forceinline__ void finish(const Carry&, const Consumer&, int, int, int) const {}
+
+  // out[m, 2u + grp] for the tile's two groups and the thread's two rows:
+  // value(grp, h, masked) is the max over the thread's own 32 values of
+  // group grp in row half h, `masked` a compile-time flag (does the tile
+  // hold a doc n >= n_real?); vmax merges the quad in two shuffles; lane
+  // tg == 0 writes. A packed value carries the lane n & 127 in its 7 low
+  // bits. The thread's values pack only the lane bits 8jj + e (bits 0 and
+  // 3..6): its own 2tg (bits 1..2) is the same for all of them, so it
+  // cannot change which one wins, and value() ORs it in after its max.
+  template <class T, class ValueFn, class MaxFn>
+  static __device__ __forceinline__ void write_groups(T* out, const Consumer& t, int M, int N,
+                                                      int n_real, int m0, int u, ValueFn value,
+                                                      MaxFn vmax) {
+    const int G = (N + 127) / 128;
+    auto write_tile = [&](auto masked) {
+#pragma unroll
+      for (int grp = 0; grp < 2; ++grp) {
+        const int gcol = 2 * u + grp;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          T v = value(grp, h, masked);
+          v = vmax(v, __shfl_xor_sync(0xffffffffu, v, 1));
+          v = vmax(v, __shfl_xor_sync(0xffffffffu, v, 2));
+          const int m = m0 + t.row(h);
+          if (t.tg == 0 && m < M && gcol < G) out[static_cast<long long>(m) * G + gcol] = v;
+        }
+      }
+    };
+    if ((u + 1) * kBN <= n_real)            // no doc of the tile is masked
+      write_tile(std::false_type{});
+    else
+      write_tile(std::true_type{});
+  }
+};
+
+// K1, K7:
+//   out[m, g] = max over the 128 docs n of group g of
+//     pack(score(m, n), lane = n & 127),  pack(v, l) = bits(v) & ~0x7F | l,
+//   score = float(acc) * scale[n] (Op::kScaled, exact int32 -> f32 and ONE
+//   rounding of the product, __fmul_rn) or acc, and -3e38 for n >= n_real;
+//   the max is a FLOAT max (fmaxf). Built without flush-to-zero: a zero
+//   score packs into a denormal that must survive the max.
+struct PackedMax : PackedTile {
+  float* out;                               // [M, ceil(N / 128)]
 
   template <class Op>
   __device__ __forceinline__ void tile(typename Op::Acc (&d)[128], const Consumer& t,
                                        const float* scales, int M, int N, int n_real, int m0,
                                        int u, int, const int*, const Carry&) const {
-    const int n0 = u * kBN, G = (N + 127) / 128;
-    // Thread-local maxima pack only the lane bits 8jj + e (bits 0 and
-    // 3..6): the thread's own 2tg (bits 1..2) is the same for all its
-    // values, so it cannot change which one wins; it is ORed in after.
+    const int n0 = u * kBN;
     const float* sc = scales + 2 * t.tg;
     auto group_max = [&](int grp, int h, auto masked) -> float {
       float r = -INFINITY;
@@ -329,27 +376,44 @@ struct PackedMax {
       }
       return __int_as_float(__float_as_int(r) | 2 * t.tg);
     };
-    auto write_tile = [&](auto masked) {
+    write_groups(out, t, M, N, n_real, m0, u, group_max,
+                 [](float a, float b) { return fmaxf(a, b); });
+  }
+};
+
+// K9: s32 sums under one global scale, reduced in int32.
+//   out[m, g] = max over the 128 docs n of group g of (s << 7) | (n & 127),
+//   s = acc, or -(1 << 24) for n >= n_real; an INTEGER max.
+// |s| <= D * 127^2 < 2^24 (the wrapper refuses larger D), so the shift
+// (done as unsigned) cannot overflow and the pad packs to exactly
+// INT_MIN | lane, below any real score. Among equal scores the highest
+// lane wins; a group with no real doc gives INT_MIN | 127.
+struct PackedIMax : PackedTile {
+  int* out;                                 // [M, ceil(N / 128)]
+
+  template <class Op>
+  __device__ __forceinline__ void tile(int (&d)[128], const Consumer& t, const float*, int M,
+                                       int N, int n_real, int m0, int u, int, const int*,
+                                       const Carry&) const {
+    static_assert(!Op::kScaled, "K9 reads no per-doc scale");
+    const int n0 = u * kBN;
+    auto group_max = [&](int grp, int h, auto masked) -> int {
+      int r = INT_MIN;
 #pragma unroll
-      for (int grp = 0; grp < 2; ++grp) {
-        const int gcol = 2 * u + grp;
+      for (int jj = 0; jj < 16; ++jj) {
+        const int j = grp * 16 + jj;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = group_max(grp, h, masked);
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-          const int m = m0 + t.row(h);
-          if (t.tg == 0 && m < M && gcol < G) out[static_cast<long long>(m) * G + gcol] = v;
+        for (int e = 0; e < 2; ++e) {
+          int v = d[4 * j + 2 * h + e];
+          if constexpr (decltype(masked)::value)
+            v = n0 + 8 * j + 2 * t.tg + e < n_real ? v : kPadI32;
+          r = max(r, static_cast<int>(static_cast<unsigned>(v) << 7 | (8 * jj + e)));
         }
       }
+      return r | 2 * t.tg;
     };
-    if (n0 + kBN <= n_real)                 // no doc of the tile is masked
-      write_tile(std::false_type{});
-    else
-      write_tile(std::true_type{});
+    write_groups(out, t, M, N, n_real, m0, u, group_max, [](int a, int b) { return max(a, b); });
   }
-
-  __device__ __forceinline__ void finish(const Carry&, const Consumer&, int, int, int) const {}
 };
 
 // K8, K10: (max, first argmax) per 128-doc group with JAX's stride merge.
@@ -458,7 +522,8 @@ struct FirstArgmax {
   }
 };
 
-// The one main loop of K1, K7, K8 and K10. Epi is PackedMax or FirstArgmax.
+// The one main loop of K1, K7, K8, K9 and K10. Epi is PackedMax, PackedIMax
+// or FirstArgmax.
 template <class Op, int kTransB, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
     group_max_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -679,12 +744,14 @@ int launch(const void* q, const void* corpus, const float* scale, int M, int N, 
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// K1, K7: packed group maxima [M, ceil(N / 128)].
-template <class Op, int kTransB>
+// K1, K7, K9: packed group maxima [M, ceil(N / 128)], f32 (PackedMax) or
+// int32 (PackedIMax) as `out` is.
+template <class Op, int kTransB, class T>
 int launch_packed_group_max(const void* q, const void* corpus, const float* scale, int M, int N,
-                            int D, int n_real, float* out, cudaStream_t stream) {
+                            int D, int n_real, T* out, cudaStream_t stream) {
+  using Epi = std::conditional_t<std::is_same<T, int>::value, PackedIMax, PackedMax>;
   return launch<Op, kTransB>(q, corpus, scale, M, N, D, n_real, (N + kBN - 1) / kBN,
-                             PackedMax{out}, stream);
+                             Epi{{}, out}, stream);
 }
 
 }  // namespace wg

@@ -8,18 +8,20 @@ earlier commit unpacked with ``git archive`` into a directory that
 loaded side by side; their C entry points are called on the same tensors,
 made on the card from a seed: K1 (qfr_group_max_packed_int8) at 1024 and
 5,120 rows, K7 (qfr_group_max_packed, [N, D] rows) at 5,120 rows, K8
-(qfr_group_max_scores) at stride 4 and 1 (tn 2048) and K10
+(qfr_group_max_scores) at stride 4 and 1 (tn 2048), K9
+(qfr_group_max_int8_global, on K1's int8 rows) and K10
 (qfr_streaming_group_max) at 1024 rows, over N docs of width D. Each time is
 the median of single calls between two CUDA events, taken in the order
-other, this, this, other. K1 and K7 must be bit-equal between the two
+other, this, this, other. K1, K7 and K9 must be bit-equal between the two
 builds; K8 and K10 are compared on integer-valued inputs (bit-equal) and
 their random-data outputs reported as the count of differing entries. The
 ptxas registers and spills of both builds' dense sources are printed, and
 the last line is one JSON object of the times.
 
-With --entry it times instead the two entry points that launch K8 and K10,
-``pallas_dense_topk(packed=False, stride=4)`` and ``streaming_dense_topk``,
-at 1024 queries: one process per checkout (each imports its own package),
+With --entry it times instead the three entry points that launch K8, K9
+and K10, ``pallas_dense_topk(packed=False, stride=4)``,
+``pallas_dense_topk_int8_global`` and ``streaming_dense_topk``, at 1024
+queries: one process per checkout (each imports its own package),
 in the order other, this, this, other, each reporting the median of
 --reps calls after a warm-up (host clock around a synchronised call).
 
@@ -41,7 +43,7 @@ from pathlib import Path
 import torch
 
 DENSE_SOURCES = ("dense_topk_int8.cu", "group_max_packed.cu", "group_max_scores.cu",
-                 "streaming_group_max.cu")
+                 "group_max_int8_global.cu")
 
 
 def _load_build(root: Path, tag: str):
@@ -100,6 +102,11 @@ def _calls(lib, q1, q5, qi1, qi5, rows_bf16, rows_i8, scale, stream):
             q.data_ptr(), rows_bf16.data_ptr(), q.shape[0], N, D, N, 0, o.data_ptr(),
             stream)), (o,)
 
+    def packed_int8_global(q):
+        o = torch.empty((q.shape[0], G), dtype=torch.int32, device=dev)
+        return (lambda: lib.qfr_group_max_int8_global(
+            q.data_ptr(), rows_i8.data_ptr(), q.shape[0], N, D, N, o.data_ptr(), stream)), (o,)
+
     def argmax(q, n_out, entry, *extra):
         v = torch.empty((q.shape[0], n_out), dtype=torch.float32, device=dev)
         i = torch.empty((q.shape[0], n_out), dtype=torch.int32, device=dev)
@@ -112,6 +119,7 @@ def _calls(lib, q1, q5, qi1, qi5, rows_bf16, rows_i8, scale, stream):
     out["K8_stride4"] = argmax(q1, n_pad // 512, lib.qfr_group_max_scores, 16, 4)
     out["K8_stride1"] = argmax(q1, n_pad // 128, lib.qfr_group_max_scores, 16, 1)
     out["K10"] = argmax(q1, n_sup, lib.qfr_streaming_group_max)
+    out["K9_1024"] = packed_int8_global(qi1)
     return out
 
 
@@ -125,11 +133,20 @@ for n0 in range(0, N, 262_144):
     rows[n0:n0 + 262_144] = torch.randn((min(N, n0 + 262_144) - n0, D), generator=gen,
                                         device="cuda")
 q = torch.randn((1024, D), generator=gen, device="cuda")
+scale = rows.abs().amax().float() / 127          # one global scale, as quantize_global
+rows_g = torch.empty((N, D), dtype=torch.int8, device="cuda")
+for n0 in range(0, N, 262_144):
+    rows_g[n0:n0 + 262_144] = torch.clamp(torch.round(rows[n0:n0 + 262_144].float() / scale),
+                                          -127, 127).to(torch.int8)
+calls = {
+    "pallas_dense_topk_stride4": lambda: dense_topk.pallas_dense_topk(
+        q, rows, k=100, packed=False, stride=4),
+    "pallas_dense_topk_int8_global": lambda: dense_topk.pallas_dense_topk_int8_global(
+        q, rows_g, scale, k=100),
+    "streaming_dense_topk": lambda: streaming_topk.streaming_dense_topk(q, rows, k=100),
+}
 out = {}
-for name, fn in (("pallas_dense_topk_stride4", lambda: dense_topk.pallas_dense_topk(
-        q, rows, k=100, packed=False, stride=4)),
-                 ("streaming_dense_topk", lambda: streaming_topk.streaming_dense_topk(
-        q, rows, k=100))):
+for name, fn in calls.items():
     fn()
     times = []
     for _ in range(reps):
@@ -166,7 +183,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dim", type=int, default=768)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--entry", action="store_true", help="time the K8 / K10 entry points")
+    ap.add_argument("--entry", action="store_true", help="time the K8 / K9 / K10 entry points")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_dense: torch.cuda.is_available() is False", file=sys.stderr)
@@ -226,7 +243,7 @@ def main(argv=None) -> int:
         print(f"{name}: other / this / this / other ms "
               + " / ".join(f"{t:.3f}" for t in times[name])
               + f"; entries that differ between the builds {same[name]}", flush=True)
-    for name in ("K1_1024", "K1_5120", "K7_5120"):
+    for name in ("K1_1024", "K1_5120", "K7_5120", "K9_1024"):
         if any(same[name]):
             raise AssertionError(f"{name}: the two builds disagree")
 

@@ -9,11 +9,13 @@
   K9 group_max_packed_int8_global (csrc/group_max_int8_global.cu): int8,
                                   one global scale, packed int32 max.
 
-K1, K7, K8 and K10 (streaming_topk.py) run on the TMA + wgmma main loop of
-csrc/dense_wgmma.cuh (a persistent grid, 128 x 256 output tiles); K9 on the
-mma.sync main loop of csrc/dense_common.cuh. TMA and the 16-byte loads of
-both loops need rows of a multiple of 16 bytes and 16-byte aligned operands
-(_check_cuda_rows); D has no other limit.
+These four and K10 (streaming_topk.py) are instances of one kernel, the
+TMA + wgmma main loop of csrc/dense_wgmma.cuh (a persistent grid, 128 x 256
+output tiles), with an epilogue policy each: a packed f32 max (K1, K7), a
+packed int32 max (K9), a (max, first argmax) with the stride merge (K8,
+K10). TMA needs rows of a multiple of 16 bytes and 16-byte aligned operands
+(_check_cuda_rows); beyond that only the int8 kernels limit D
+(D*127^2 < 2^24).
 
 Every entry point takes the JAX function's parameters by name, in order,
 with its defaults; the port's own extras come after them. What they mean

@@ -2,12 +2,12 @@
 an NVIDIA GPU, at small shapes, plus the launch counters and the wrappers'
 refusals.
 
-K1, K7, K8 and K10 share one TMA + wgmma main loop (csrc/dense_wgmma.cuh);
-K8 and K10 are one kernel there, K10 being K8 at stride 1 over a corpus
-padded to a multiple of 16,384 docs. The dense bf16 kernels (K7, K8, K10)
-are held bit-equal to their plain
-versions on integer-valued inputs (every f32 partial sum is then exact in
-any order), ties, ragged N and zero scores included; on random inputs only
+K1, K7, K8, K9 and K10 share one TMA + wgmma main loop
+(csrc/dense_wgmma.cuh); K8 and K10 are one kernel there, K10 being K8 at
+stride 1 over a corpus padded to a multiple of 16,384 docs. The dense bf16
+kernels (K7, K8, K10) are held bit-equal to their plain versions on
+integer-valued inputs (every f32 partial sum is then exact in any order),
+ties, ragged N and zero scores included; on random inputs only
 the summation order differs, and the tolerance is the one of
 tests/test_torch_dense.py (2^-15 relative + 1e-6 of the |q|.|c| bound; a
 lane or argmax may differ only between docs whose float64 scores lie
@@ -602,17 +602,71 @@ def test_k8_random_within_tolerance(cuda):
     assert ((s64[rows, ids] - s64[rows, r_ids]).abs() <= t).all()
 
 
-@pytest.mark.parametrize("M,N,D,n_real", [(100, 5000, 64, None), (256, 8192, 768, None),
-                                           (130, 4000, 128, 2999), (1, 77, 16, None)])
-def test_k9_matches_plain_bits(cuda, M, N, D, n_real):
-    g = torch.Generator().manual_seed(M + N + D)
-    q = torch.randint(-127, 128, (M, D), generator=g, dtype=torch.int8)
-    c = torch.randint(-127, 128, (N, D), generator=g, dtype=torch.int8)
-    c[5] = c[6]                               # tied scores in one group
+def _k9_inputs(M, N, D, pattern):
+    """int8 q [M, D] and corpus rows [N, D] for K9's tie and pad cases:
+      random       entries in [-127, 127], docs 5 and 6 equal;
+      same_docs    group 1 is 128 copies of one doc: lane 127 wins every row;
+      tg_ties      q in {0, 1}, docs in {-1, 0, 1}; docs 8, 10, 12 and 14 of
+                   group 2 are all ones, the row's best score: lanes that
+                   differ only in bits 1-2 (four consumer threads of a quad),
+                   so the OR of 2tg after the max and the quad reduce decide
+                   (lane 14);
+      masked_group entries in [-127, 127] (n_real leaves whole groups
+                   masked: INT32_MIN | 127);
+      extreme      every entry +-127, doc 3 = q[0] and doc 4 = -q[0]: row 0
+                   reaches +-D * 127^2, the 2^24 edge at D 1040."""
+    if pattern == "random":
+        g = torch.Generator().manual_seed(M + N + D)
+        q = torch.randint(-127, 128, (M, D), generator=g, dtype=torch.int8)
+        c = torch.randint(-127, 128, (N, D), generator=g, dtype=torch.int8)
+        c[5] = c[6]                           # tied scores in one group
+        return q, c
+    rng = np.random.default_rng(M + N + D)
+    if pattern == "tg_ties":
+        q, c = rng.integers(0, 2, (M, D)), rng.integers(-1, 2, (N, D))
+        c[256 + np.array([8, 10, 12, 14])] = 1
+    elif pattern == "extreme":
+        q, c = rng.choice([-127, 127], (M, D)), rng.choice([-127, 127], (N, D))
+        c[3], c[4] = q[0], -q[0]
+    else:
+        q, c = rng.integers(-127, 128, (M, D)), rng.integers(-127, 128, (N, D))
+        if pattern == "same_docs":
+            c[128:256] = c[128]
+    return torch.as_tensor(q.astype(np.int8)), torch.as_tensor(c.astype(np.int8))
+
+
+@pytest.mark.parametrize("M,N,D,n_real,pattern", [
+    pytest.param(100, 5000, 64, None, "random", id="100-5000-64-None"),
+    pytest.param(256, 8192, 768, None, "random", id="256-8192-768-None"),
+    pytest.param(130, 4000, 128, 2999, "random", id="130-4000-128-2999"),
+    pytest.param(1, 77, 16, None, "random", id="1-77-16-None"),
+    (129, 200, 96, None, "random"),       # M ragged, 128 < N < 256: one tile, group 1 partial
+    (300, 1000, 848, 700, "random"),      # n_real in a tile's second group, N % 256 != 0
+    (1, 100, 16, 37, "random"),           # N < 128, D 16
+    (300, 4000, 1040, 3900, "random"),    # n_real inside the last tile, D 1040
+    (1024, 65536, 768, None, "random"),   # many units per cluster
+    (129, 512, 64, None, "same_docs"),
+    (300, 512, 32, None, "tg_ties"),
+    (200, 1000, 48, 700, "masked_group"),
+    (129, 2000, 1040, None, "extreme")])
+def test_k9_matches_plain_bits(cuda, M, N, D, n_real, pattern):
+    """K9 on the wgmma loop (int32 PackedIMax epilogue, no scale traffic):
+    bit-equal to the plain version at ragged M and N, n_real inside a tile,
+    D 16 to 1040, and at every tie and pad rule of the packed int32 max."""
+    q, c = _k9_inputs(M, N, D, pattern)
     out = _counted("group_max_packed_int8_global", lambda: (
         dense_topk.group_max_packed_int8_global(q.to(cuda), c.to(cuda), n_real=n_real)))
     ref = dense_topk.group_max_packed_int8_global_plain(q, c, N if n_real is None else n_real)
+    assert out.shape == (M, -(-N // 128))
     assert torch.equal(out.cpu(), ref)
+    if pattern == "same_docs":
+        assert ((ref[:, 1] & 0x7F) == 127).all()
+    elif pattern == "tg_ties":
+        assert ((ref[:, 2] & 0x7F) == torch.where(q.bool().any(1), 14, 127)).all()
+    elif pattern == "masked_group":
+        assert (ref[:, 6:] == INT32_MIN | 127).all()
+    elif pattern == "extreme":
+        assert int(ref[0, 0]) >> 7 == D * 127 * 127
 
 
 @pytest.mark.parametrize("M,N,D,n_real", [(100, 5000, 64, None), (300, 20_000, 768, None),

@@ -158,19 +158,67 @@ def test_k8_plain_random_within_tolerance():
 
 # ----------------------------------------------------------------- K9 ------
 
-@pytest.mark.parametrize("n,n_real", [(1024, None), (1000, None), (1024, 700), (50, None)])
-def test_k9_plain_matches_pallas_bits(n, n_real):
-    rng = np.random.default_rng(n + (n_real or 0))
-    q = rng.integers(-127, 128, (16, 96)).astype(np.int8)
-    c = rng.integers(-127, 128, (n, 96)).astype(np.int8)
-    c[5] = c[6]                              # tied scores in one group
-    c[:, 0] = np.where(np.arange(n) % 3 == 0, 127, c[:, 0])
+INT32_MIN = -(2**31)
+
+
+def _k9_inputs(pattern, n, D, rng):
+    """int8 q [16, D] and corpus rows [n, D] for K9's tie and pad cases:
+      random       entries in [-127, 127], two equal docs, many 127s;
+      same_docs    group 1 is 128 copies of one doc: the highest lane (127)
+                   wins every row;
+      tg_ties      q in {0, 1}, docs in {-1, 0, 1}; docs 8, 10, 12 and 14 of
+                   group 2 are all ones, the row's best score: lanes that
+                   differ only in bits 1-2, so the highest (14) wins;
+      masked_group entries in [-127, 127] (n_real leaves whole groups
+                   masked: INT32_MIN | 127);
+      extreme      every entry +-127, doc 3 = q[0] and doc 4 = -q[0]: row 0
+                   reaches +-D * 127^2, the 2^24 edge at D 1040."""
+    if pattern == "tg_ties":
+        q = rng.integers(0, 2, (16, D))
+        c = rng.integers(-1, 2, (n, D))
+        c[256 + np.array([8, 10, 12, 14])] = 1
+    elif pattern == "extreme":
+        q = rng.choice([-127, 127], (16, D))
+        c = rng.choice([-127, 127], (n, D))
+        c[3], c[4] = q[0], -q[0]
+    else:
+        q = rng.integers(-127, 128, (16, D))
+        c = rng.integers(-127, 128, (n, D))
+        if pattern == "random":
+            c[5] = c[6]                      # tied scores in one group
+            c[:, 0] = np.where(np.arange(n) % 3 == 0, 127, c[:, 0])
+        elif pattern == "same_docs":
+            c[128:256] = c[128]
+    return q.astype(np.int8), c.astype(np.int8)
+
+
+@pytest.mark.parametrize("n,n_real,pattern,D", [
+    pytest.param(1024, None, "random", 96, id="1024-None"),
+    pytest.param(1000, None, "random", 96, id="1000-None"),
+    pytest.param(1024, 700, "random", 96, id="1024-700"),
+    pytest.param(50, None, "random", 96, id="50-None"),
+    pytest.param(512, None, "same_docs", 64, id="same_docs"),
+    pytest.param(512, None, "tg_ties", 32, id="tg_ties"),
+    pytest.param(1000, 700, "masked_group", 48, id="masked_group"),
+    pytest.param(512, None, "extreme", 1040, id="extreme_d1040")])
+def test_k9_plain_matches_pallas_bits(n, n_real, pattern, D):
+    rng = np.random.default_rng(n + (n_real or 0) + (D if pattern != "random" else 0))
+    q, c = _k9_inputs(pattern, n, D, rng)
     nr = n if n_real is None else n_real
     ref = JK.group_max_packed_int8_global(jnp.asarray(q), jnp.asarray(_pad_rows(c, 256).T),
                                           tm=8, tn=256, n_real=nr)
     out = TK.group_max_packed_int8_global(torch.as_tensor(q), torch.as_tensor(c), n_real=n_real)
     g = -(-n // G)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref)[:, :g])
+    out = out.numpy()
+    if pattern == "same_docs":
+        assert ((out[:, 1] & 0x7F) == 127).all()
+    elif pattern == "tg_ties":
+        assert ((out[:, 2] & 0x7F) == np.where(q.any(1), 14, 127)).all()
+    elif pattern == "masked_group":
+        assert (out[:, 6:] == INT32_MIN | 127).all() and (out[:, :6] > INT32_MIN | 127).all()
+    elif pattern == "extreme":
+        assert out[0, 0] >> 7 == D * 127 * 127 and (out >> 7).min() >= -D * 127 * 127
 
 
 def test_quantize_global_matches_jitted_reference():
