@@ -8,15 +8,22 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel, into build/torch_kernels/), builds the bench-scale synthetic index
 on the host (2,621,440 docs, BM25 and SPLADE presorted postings at p_cap
-2048, their doc-major term vectors at imp_bits 14 and doc_cap 128) and the
-768-wide dense corpus on the card from a seed (int8 rows for the kernels,
-bf16 rows of the same draws for the rank-safe rerank and the dense
-flagship), holds each kernel against its plain PyTorch version at the main
-paths' shapes (with its bound from those shapes and, where one PyTorch call
-computes the same function, that call's time), then drives the ensemble
-step for 12 steps (4 passes over three batches of 1024 queries) in q8 mode
-and 12 in rank-safe q8r mode (256 sparse candidates, a 128-doc dense pool),
-one q8r BM25 call at 8192 candidates (the pool's full-sort branch), and one
+2048 and the impact-ordered layout, their doc-major term vectors at
+imp_bits 14 and doc_cap 128 with their tails) and the 768-wide dense corpus
+on the card from a seed (int8 rows for the kernels, bf16 rows of the same
+draws for the rank-safe rerank and the dense flagship), holds each kernel
+against its plain PyTorch version at the main paths' shapes (with its bound
+from those shapes and, where one PyTorch call computes the same function,
+that call's time; K6 also with its matched-weight output at the certified
+pool), then drives the ensemble step for 12 steps (4 passes over three
+batches of 1024 queries) in q8 mode, 12 in rank-safe q8r mode (256 sparse
+candidates, a 128-doc dense pool), 12 in certified q8c mode (the same, with
+the tails; certified_frac on a line of its own), then checks the
+certificates of 8 queries per view against exhaustive float64 scores over
+the full CSR, makes one q8c BM25 call on the f32 route (exact doc vectors),
+drives 12 steps in the default "sort" mode and one window-rescore step
+(sparse_candidates 4) over the impact-ordered layout, one q8r BM25 call at
+8192 candidates (the pool's full-sort branch), and one
 q8 and one q8r SPLADE call of 32-term queries (rows of 65,536 keys: K2 on
 four-CTA clusters), with K2, K4 and K5 then timed alone at those rows. The
 registers and spill bytes that ptxas reported for the bitonic kernels (K2,
@@ -29,11 +36,11 @@ int8 route (K1) and 12 on the bf16 route (K7), learned-fusion calls, one
 full-size call of each dense entry point (K8 at stride 4, K9, K10), and a
 torch.profiler window of 3 steps per main path (device busy share, top
 kernels). Each path checks that every kernel it runs launched, with the
-counts set to 0 just before it. Last, the kernel-bearing views and the
-flagship's runs and fused outputs are cross-checked against the plain
-versions on CPU copies. Every phase raises on failure and prints its
-seconds. The line before the last is a JSON summary of the ten kernels;
-the last line is
+counts set to 0 just before it. Last, the kernel-bearing views (the q8c
+certificates and the f32 route too) and the flagship's runs and fused
+outputs are cross-checked against the plain versions on CPU copies. Every
+phase raises on failure and prints its seconds. The line before the last
+is a JSON summary of the ten kernels; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -60,6 +67,8 @@ DIM = 768
 BATCH = 1024
 TOP_K = 100
 P_CAP = 2048
+TIE_REL_EPS = 1e-5                # the certified scorer's tie band (its default)
+WINDOW_CANDIDATES = 4             # the window rescore's pool: 4 x TOP_K raw contributions
 BM25_TQ, SPLADE_TQ = 8, 16
 BM25_VOCAB, SPLADE_VOCAB = 100_000, 30_000
 DOC_CAP = 128
@@ -116,14 +125,15 @@ def bound(nbytes: float, ops: float, kind: str):
 
 def template_args(mangled: str, at: int):
     """The template arguments of a mangled kernel name from position `at`
-    (just after the name): integers (Li<n>E) and types of the kernel's
-    namespace (NS_<len><name>E). -> list of str, empty without a list."""
+    (just after the name): integers (Li<n>E), bools (Lb<0|1>E) and types of
+    the kernel's namespace (NS_<len><name>E). -> list of str, empty without
+    a list."""
     args = []
     if not mangled.startswith("I", at):
         return args
     i = at + 1
     while i < len(mangled) and mangled[i] != "E":
-        if m := re.match(r"Li(-?\d+)E", mangled[i:]):
+        if m := re.match(r"L[ib](-?\d+)E", mangled[i:]):
             args.append(m.group(1))
         elif m := re.match(r"NS_(\d+)", mangled[i:]):
             n = int(m.group(1))
@@ -215,12 +225,15 @@ def long_row_kernels(res, keys, start_block, pkeys, tq):
 
 
 def host_build(n_docs: int):
-    """Bench-scale synthetic BM25 + SPLADE indexes: presorted postings and
-    doc-major vectors (the parameters of the JAX package's bench)."""
+    """Bench-scale synthetic BM25 + SPLADE indexes (the parameters of the
+    JAX package's bench): presorted postings, doc-major vectors with their
+    tails, the impact-ordered layout of the "sort" and window-rescore modes,
+    and the raw CSR (offsets, docs, f32 weights) of the soundness check."""
     from qpp_fusion_rag_tpu_torch.data import synthetic as S
     from qpp_fusion_rag_tpu_torch.ops.sparse import (
         doc_vector_imp_bits,
         pack_doc_vectors,
+        pack_postings,
         pack_postings_presorted,
         term_scales_from_csr,
     )
@@ -241,9 +254,12 @@ def host_build(n_docs: int):
         log(f"  {name}: {len(docs)} postings -> {len(packed)} packed; doc vectors "
             f"[{n_docs}, {td}] imp_bits {imp_bits} in {time.perf_counter() - t0:.1f} s, "
             f"truncated {(tail > 0).mean() * 100:.2f}% of docs")
+        plain, _ = pack_postings(docs, w, off, scales=scales)
         out.update({f"{name}_packed": packed, f"{name}_scales": scales,
                     f"{name}_offsets": off2, f"{name}_csr_offsets": off,
-                    f"{name}_doc_packed": dp, f"{name}_doc_scale": dsc})
+                    f"{name}_doc_packed": dp, f"{name}_doc_scale": dsc, f"{name}_tail": tail,
+                    f"{name}_plain_packed": plain, f"{name}_csr_docs": docs,
+                    f"{name}_csr_w": w})
     return out
 
 
@@ -303,6 +319,7 @@ def kernels_vs_plain(idx, batch, imp_bits):
            for k in ("group_max_packed_int8", "bitonic_segsum_rows", "gather_windows",
                      "bitonic_topp_rows", "bitonic_sort_rows", "rescore_match")}
     work = {k: [0.0, 0.0] for k in res}      # bytes, int8 operations
+    k6_q8c_bytes = [0.0, 0.0]                # K6 at q8c's pool: without, with the output
 
     def timed(name, kernel, plain, reps=10, plain_reps=10, library=None, nbytes=0, ops=0):
         res[name]["ms"] += median_ms(kernel, reps)
@@ -385,6 +402,37 @@ def kernels_vs_plain(idx, batch, imp_bits):
             f"within rtol {RTOL} (max rel err "
             f"{float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max()):.3g})")
 
+        # the q8c pool (bitonic pool of the plus_one bound sums) through
+        # both K6 instances: with the matched-weight output, and without it
+        sums, sids, wmax = S._q8_row_sums(packed, offsets, scales, terms, qw, P_CAP,
+                                          presorted=True, plus_one=True)
+        _, ci, _ = S._bitonic_pool(sums, sids, Q8R_CANDIDATES, wmax)
+        args = (dp, ci, terms, qwz, imp_bits)
+        got, got_m = row_gather.rescore_match(*args, return_matched=True)
+        ref, ref_m = row_gather.rescore_match_plain(*args, return_matched=True)
+        for what, a, b in (("sums", got, ref), ("matched weights", got_m, ref_m)):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=0, msg=lambda m: (
+                f"K6 rescore_match with its matched output != plain ({view}, {what}): {m}"))
+        if not torch.equal(got, row_gather.rescore_match(*args)):
+            raise AssertionError(f"K6's two instances give different sums ({view})")
+        r = res["rescore_match"]
+        r["max_abs_err_matched"] = max(r.get("max_abs_err_matched", 0.0),
+                                       float((got - ref).abs().max()),
+                                       float((got_m - ref_m).abs().max()))
+        n_cand = int((ci >= 0).sum())
+        k6_bytes = n_cand * dp.shape[1] * 4 + ci.numel() * 8 + terms.numel() * 8
+        k6_q8c_bytes[0] += k6_bytes
+        k6_q8c_bytes[1] += k6_bytes + 4 * ci.numel()
+        for key, fn, reps in (
+                ("ms_q8c", lambda: row_gather.rescore_match(*args), 10),
+                ("ms_matched", lambda: row_gather.rescore_match(*args, return_matched=True), 10),
+                ("plain_ms_matched", lambda: row_gather.rescore_match_plain(
+                    *args, return_matched=True), 5)):
+            r[key] = r.get(key, 0.0) + median_ms(fn, reps)
+        log(f"  K6 rescore_match at q8c's pool {view} ids {tuple(ci.shape)}: sums and matched "
+            f"weights within rtol {RTOL} of plain; the instance without the output gives "
+            "the same sums bit for bit")
+
     q_int, _ = dense_topk.quantize_rows(q_emb)
     args = (q_int, idx.corpus_rows, idx.d_scale)
     got = dense_topk.group_max_packed_int8(*args)
@@ -402,6 +450,11 @@ def kernels_vs_plain(idx, batch, imp_bits):
     log(f"  K1 group_max_packed_int8 {tuple(q_int.shape)} x {tuple(idx.corpus_rows.shape)}"
         f" -> {tuple(got.shape)}: equal as int32 bit patterns; the int8 product alone "
         f"(torch._int_mm over corpus chunks, no group max): {r['matmul_only_ms']:.3f} ms")
+    k6 = res["rescore_match"]
+    k6["bound_ms_q8c"], k6["bound_ms_matched"] = (bound(b, 0, "int8")[0] for b in k6_q8c_bytes)
+    log(f"  rescore_match at q8c's pool: without the matched output {k6['ms_q8c']:.3f} ms "
+        f"(bound {k6['bound_ms_q8c']:.4f}), with it {k6['ms_matched']:.3f} ms (bound "
+        f"{k6['bound_ms_matched']:.4f}), plain with it {k6['plain_ms_matched']:.3f} ms per step")
     for name, r in res.items():
         r["bound_ms"], r["bound_by"] = bound(*work[name], "int8")
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -426,10 +479,19 @@ def bf16_product(q, rows):
 
 
 def check_step_output(out, n_docs):
-    fused_ids, fused_scores, qpp = out
+    """A step's outputs: (fused ids, fused scores, qpp), and in q8c mode
+    (certified [B] bool, slack [B] f32) after them."""
+    fused_ids, fused_scores, qpp, *cert = out
     shapes = [tuple(x.shape) for x in out]
-    if shapes != [(BATCH, TOP_K), (BATCH, TOP_K), (5, BATCH, 13)]:
+    want = [(BATCH, TOP_K), (BATCH, TOP_K), (5, BATCH, 13)] + [(BATCH,)] * len(cert)
+    if shapes != want or len(cert) not in (0, 2):
         raise AssertionError(f"unexpected output shapes {shapes}")
+    if cert:
+        certified, slack = cert
+        if certified.dtype != torch.bool or torch.isnan(slack).any():
+            raise AssertionError("q8c: certified must be bool and slack a number")
+        if (certified & torch.isneginf(slack)).any():
+            raise AssertionError("q8c: a query certified with a slack of -inf")
     if not torch.isfinite(qpp).all():
         raise AssertionError("non-finite QPP values")
     valid = fused_ids >= 0
@@ -450,7 +512,7 @@ def drive(name, step_fn, batches, smi, expect, n_docs, rounds=ROUNDS):
     """Run step_fn over the batches `rounds` times with the launch counts
     set to 0 just before; check the first round's outputs and that every
     kernel in `expect` launched. -> (launch counts, per-step ms: the first
-    step is the warm-up, the rest steady)."""
+    step is the warm-up, the rest steady; the first round's outputs)."""
     from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
 
     LAUNCHES.clear()
@@ -476,16 +538,16 @@ def drive(name, step_fn, batches, smi, expect, n_docs, rounds=ROUNDS):
     for out in outs:
         check_step_output(out, n_docs)
     log("  outputs: shapes, finite QPP, non-increasing fused scores, unique ids < N: ok")
-    return launches, step_ms
+    return launches, step_ms, outs
 
 
-def run_path(name, idx, batches, smi, expect, **kw):
+def run_path(name, idx, batches, smi, expect, rounds=ROUNDS, presorted=True, **kw):
     """The ensemble step over the batches (drive)."""
     from qpp_fusion_rag_tpu_torch.pipeline.ensemble import ensemble_retrieval_step
 
     return drive(name, lambda b: ensemble_retrieval_step(
-        idx, *b, k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True, **kw),
-        batches, smi, expect, idx.corpus_rows.shape[0])
+        idx, *b, k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=presorted, **kw),
+        batches, smi, expect, idx.corpus_rows.shape[0], rounds)
 
 
 def assert_close_ranking(g_s, g_i, c_s, c_i, what):
@@ -870,6 +932,92 @@ def flagship_cross_check(rows_bf16, rows_i8, scale, fbatch, view_proj, cmax):
     del c_i8, c_bf
 
 
+def true_scores(csr, terms, weights):
+    """float64 exhaustive scores [len(terms), N_DOCS] of the raw f32 CSR
+    weights (offsets, docs, weights) for host query rows."""
+    off, docs, w = csr
+    out = np.zeros((len(terms), N_DOCS), np.float64)
+    for r, (ts, ws) in enumerate(zip(terms, weights)):
+        for t, qw in zip(ts, ws):
+            if t >= 0:
+                lo, hi = int(off[t]), int(off[t + 1])
+                out[r] += np.bincount(docs[lo:hi], weights=float(qw) * w[lo:hi].astype(np.float64),
+                                      minlength=N_DOCS)
+    return out
+
+
+def certified_soundness(idx, view, terms, qw, csr, imp_bits):
+    """q8c on the card for one view of a batch (the scorer the step runs,
+    tails included), and the soundness of its certificates on CROSS_Q of
+    its queries: up to half of them certified, the rest not. Where a query
+    is certified, its ids must carry the true top-k of the raw f32 weights,
+    scored in float64 on the host over the full CSR (the JAX package's
+    tests/test_sparse_certified.py contract). -> (Certificate, rows)."""
+    from qpp_fusion_rag_tpu_torch.ops import sparse as S
+
+    cert = S.certify(*view_args(idx, view, ("packed", "offsets", "scales", "doc_packed",
+                                            "doc_scale")), terms, qw, k=TOP_K, p_cap=P_CAP,
+                     candidates=Q8R_CANDIDATES, imp_bits=imp_bits, presorted=True,
+                     tail_max=getattr(idx, f"{view}_tail"))
+    ok = cert.certified.cpu().numpy()
+    yes, no = np.flatnonzero(ok), np.flatnonzero(~ok)
+    n_yes = max(CROSS_Q - len(no), min(len(yes), CROSS_Q // 2))
+    rows = np.sort(np.concatenate([yes[:n_yes], no[:CROSS_Q - n_yes]]))
+    true = true_scores(csr, terms[rows].cpu().numpy(), qw[rows].cpu().numpy())
+    ids = cert.ids[rows].cpu().numpy()
+    for r, b in enumerate(rows):
+        if ok[b]:
+            best = np.sort(np.partition(true[r], -TOP_K)[-TOP_K:])[::-1]
+            got = np.sort(true[r][ids[r]])[::-1]
+            if not np.allclose(got, best, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{view} q8c: query {b} is certified but its ids do not "
+                                     "carry the true top-k")
+    log(f"  {view}: {int(ok.sum())} of {len(ok)} queries certified; soundness over the full "
+        f"CSR in float64 on {len(rows)} queries ({int(ok[rows].sum())} certified): every "
+        "certified one returned the true top-k")
+    return cert, rows
+
+
+def certificate_close(g, c, rows, what):
+    """A certificate from the card (rows of it) against the CPU's: scores
+    within RTOL and ids up to near-tie swaps, slack within the tie band
+    1e-5 (|ret_lb| + |bound|), and the same `certified` wherever the slack
+    lies outside that band around the decision point."""
+    g = type(g)(*(x[torch.as_tensor(rows, device=x.device)].cpu() for x in g))
+    assert_close_ranking(g.scores, g.ids, c.scores, c.ids, what)
+    band = TIE_REL_EPS * (c.ret_lb.abs() + c.bound.abs())
+    fin = torch.isfinite(c.slack)
+    if not torch.equal(fin, torch.isfinite(g.slack)) or ((g.slack - c.slack).abs()[fin]
+                                                         > band[fin]).any():
+        raise AssertionError(f"{what}: slack beyond the tie band")
+    clear = ~fin | ((c.slack + band).abs() > band)
+    if not torch.equal(g.certified[clear], c.certified[clear]):
+        raise AssertionError(f"{what}: certified differs outside the tie band")
+
+
+def f32_route(idx, csr, terms, qw, imp_bits, dev):
+    """One BM25 q8c call of the batch on the f32 rescore route: the exact
+    doc vectors (pack_doc_vectors_exact) over the full CSR, made on the host
+    and moved to the card. -> (Certificate, doc_terms, doc_w numpy)."""
+    from qpp_fusion_rag_tpu_torch.ops import sparse as S
+
+    t0 = time.perf_counter()
+    doc_terms, doc_w, td = S.pack_doc_vectors_exact(*csr, N_DOCS)
+    pack_s = time.perf_counter() - t0
+    dt, dw = torch.from_numpy(doc_terms).to(dev), torch.from_numpy(doc_w).to(dev)
+    args = view_args(idx, "bm25", ("packed", "offsets", "scales", "doc_packed", "doc_scale"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cert = S.certify(*args, terms, qw, k=TOP_K, p_cap=P_CAP, candidates=Q8R_CANDIDATES,
+                     imp_bits=imp_bits, presorted=True, doc_terms=dt, doc_w=dw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    log(f"  exact doc vectors Td {td}: doc_terms + doc_w {doc_terms.nbytes + doc_w.nbytes} "
+        f"bytes, packed on the host in {pack_s:.1f} s; one call {ms:.1f} ms; "
+        f"{int(cert.certified.sum())} of {cert.certified.numel()} queries certified")
+    return cert, doc_terms, doc_w
+
+
 def main() -> None:
     if not (ROOT / "qpp_fusion_rag_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: no qpp_fusion_rag_tpu_torch package beside "
@@ -922,7 +1070,13 @@ def main() -> None:
                              | {"corpus_rows": rows, "d_scale": scale}, dev)
     idx_rs = idx._replace(rerank_rows=rows_bf16, doc_imp_bits=imp_bits, **{
         f"{v}_{f}": torch.as_tensor(h[f"{v}_{f}"], device=dev)
-        for v in VIEWS for f in ("doc_packed", "doc_scale")})
+        for v in VIEWS for f in ("doc_packed", "doc_scale", "tail")})
+    # the impact-ordered layout of the "sort" and window-rescore modes
+    idx_sort = idx._replace(**{
+        f"{v}_{f}": torch.as_tensor(x, device=dev) for v in VIEWS for f, x in (
+            ("packed", h[f"{v}_plain_packed"]),
+            ("offsets", h[f"{v}_csr_offsets"].astype(np.int32)))})
+    csr = {v: (h[f"{v}_csr_offsets"], h[f"{v}_csr_docs"], h[f"{v}_csr_w"]) for v in VIEWS}
     torch.cuda.synchronize()
     log(f"[3] host build {host_s:.1f} s (n_docs {N_DOCS}, no cut); dense corpus "
         f"{tuple(rows.shape)} int8 + bf16 rerank rows + index upload "
@@ -939,20 +1093,52 @@ def main() -> None:
     q8_kernels = ("group_max_packed_int8", "bitonic_segsum_rows", "gather_windows")
     log(f"[5] q8 path: ensemble_retrieval_step (q8, presorted), {ROUNDS} passes over "
         f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs")
-    q8_launches, q8_ms = run_path("q8", idx, batches, smi, q8_kernels, sparse_mode="q8")
+    q8_launches, q8_ms, _ = run_path("q8", idx, batches, smi, q8_kernels, sparse_mode="q8")
 
     q8r_kernels = q8_kernels + ("bitonic_topp_rows", "rescore_match")
     log(f"[6] q8r path: ensemble_retrieval_step (q8r, {Q8R_CANDIDATES} candidates, dense "
         f"pool {DENSE_POOL}, bf16 rerank rows, doc_imp_bits {imp_bits}), {ROUNDS} passes over "
         f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs")
-    q8r_launches, q8r_ms = run_path(
+    q8r_launches, q8r_ms, _ = run_path(
         "q8r", idx_rs, batches, smi, q8r_kernels, sparse_mode="q8r",
         sparse_candidates=Q8R_CANDIDATES, dense_rescore_pool=DENSE_POOL,
         doc_imp_bits=imp_bits)
 
+    bt, bq, st, sq, q_emb, _, _ = batches[0]
+    log(f"[6b] q8c path: ensemble_retrieval_step (q8c, {Q8R_CANDIDATES} candidates, dense "
+        f"pool {DENSE_POOL}, bf16 rerank rows, doc_imp_bits {imp_bits}, doc_cap {DOC_CAP} "
+        f"with tails), {ROUNDS} passes over {len(batches)} batches of {BATCH} queries, "
+        f"{N_DOCS} docs")
+    q8c_launches, q8c_ms, q8c_outs = run_path(
+        "q8c", idx_rs, batches, smi, q8r_kernels, sparse_mode="q8c",
+        sparse_candidates=Q8R_CANDIDATES, dense_rescore_pool=DENSE_POOL,
+        doc_imp_bits=imp_bits)
+    certified = torch.cat([out[3] for out in q8c_outs])
+    certified_frac = float(certified.float().mean())
+    log(f"certified_frac {certified_frac} ({int(certified.sum())} of {certified.numel()} "
+        "queries: both sparse views certified)")
+
+    log(f"[6c] q8c soundness: each sparse view's certified scorer on batch 0 on the card, "
+        f"{CROSS_Q} queries of each checked against exhaustive float64 scores")
+    q8c_cert = {view: certified_soundness(idx_rs, view, terms, qw, csr[view], imp_bits)
+                for view, terms, qw in (("bm25", bt, bq), ("splade", st, sq))}
+
+    log("[6d] q8c f32 rescore route: one BM25 call of batch 0 with doc_terms / doc_w")
+    f32_cert, doc_terms, doc_w = f32_route(idx_rs, csr["bm25"], bt, bq, imp_bits, dev)
+
+    sort_kernels = ("group_max_packed_int8", "gather_windows")
+    log(f"[6e] sort path: ensemble_retrieval_step (sparse_mode 'sort', the impact-ordered "
+        f"layout), {ROUNDS} passes over {len(batches)} batches of {BATCH} queries")
+    sort_launches, sort_ms, _ = run_path("sort", idx_sort, batches, smi, sort_kernels,
+                                         presorted=False, sparse_mode="sort")
+    log(f"[6f] window rescore: one ensemble_retrieval_step (sparse_candidates "
+        f"{WINDOW_CANDIDATES}: a pool of {WINDOW_CANDIDATES * TOP_K} raw contributions per view)")
+    win_launches, win_ms, _ = run_path("window_rescore", idx_sort, batches[:1], smi,
+                                       sort_kernels, rounds=1, presorted=False,
+                                       sparse_candidates=WINDOW_CANDIDATES)
+
     log(f"[7] q8r pool fallback: one BM25 sparse_score_topk_q8_rescored call at "
         f"{FALLBACK_CANDIDATES} candidates (bs 16384, 2*bs > M = {BM25_TQ * P_CAP})")
-    bt, bq, st, sq, q_emb, _, _ = batches[0]
     bm25_rs = view_args(idx_rs, "bm25", ("packed", "offsets", "scales", "doc_packed",
                                          "doc_scale"))
     fb_kw = dict(k=TOP_K, p_cap=P_CAP, candidates=FALLBACK_CANDIDATES, imp_bits=imp_bits,
@@ -1005,7 +1191,21 @@ def main() -> None:
     log(f"[8] cross-check of the kernel views for {CROSS_Q} queries on CPU copies")
     for view, terms, qw in (("bm25", bt, bq), ("splade", st, sq)):
         c = [x.cpu() for x in view_args(idx_rs, view, ("packed", "offsets", "scales",
-                                                       "doc_packed", "doc_scale"))]
+                                                       "doc_packed", "doc_scale", "tail"))]
+        tail = c.pop()
+        g_cert, rows = q8c_cert[view]
+        rows_t = torch.as_tensor(rows)
+        c_cert = S.certify(*c, terms.cpu()[rows_t], qw.cpu()[rows_t], k=TOP_K, p_cap=P_CAP,
+                           candidates=Q8R_CANDIDATES, imp_bits=imp_bits, presorted=True,
+                           tail_max=tail)
+        certificate_close(g_cert, c_cert, rows, f"{view} q8c")
+        if view == "bm25":
+            c_cert = S.certify(*c, terms[:CROSS_Q].cpu(), qw[:CROSS_Q].cpu(), k=TOP_K,
+                               p_cap=P_CAP, candidates=Q8R_CANDIDATES, imp_bits=imp_bits,
+                               presorted=True, doc_terms=torch.from_numpy(doc_terms),
+                               doc_w=torch.from_numpy(doc_w))
+            certificate_close(f32_cert, c_cert, np.arange(CROSS_Q), "bm25 q8c f32 route")
+            del doc_terms, doc_w
         ct, cq = terms[:CROSS_Q].cpu(), qw[:CROSS_Q].cpu()
         g_s, g_i = S.sparse_score_topk_q8(*view_args(idx_rs, view), terms, qw,
                                           k=TOP_K, p_cap=P_CAP, presorted=True)
@@ -1052,7 +1252,8 @@ def main() -> None:
     del c_rows, c_bf16
     log(f"  q8 views (SPLADE at Tq {LONG_TQ} too) and dense view equal; q8r views (SPLADE "
         f"at Tq {LONG_TQ} too), the K5 fallback and the rescored dense view within rtol "
-        f"{RTOL} (ids up to near-tie swaps)")
+        f"{RTOL} (ids up to near-tie swaps); q8c views (the f32 route too): scores within "
+        f"rtol {RTOL}, slack within the tie band, certified equal outside it")
     log("  cross-check ok")
 
     phase_s["[1-8] ensemble paths and cross-check"] = time.perf_counter() - t_all
@@ -1084,10 +1285,10 @@ def main() -> None:
             ("flagship_int8", idx.corpus_rows, "group_max_packed_int8",
              dict(corpus_scale=idx.d_scale)),
             ("flagship_bf16", rows_bf16, "group_max_packed", dict(use_pallas=True))):
-        flag_launches[name], flag_ms[name] = run_flagship(
+        flag_launches[name], flag_ms[name], _ = run_flagship(
             name, fused_retrieval_step, corpus, fbatches, view_proj, smi, (kernel,), **kw)
     params = mlp_params_from_numpy(mlp, dev)
-    flag_launches["flagship_learned"], flag_ms["flagship_learned"] = run_flagship(
+    flag_launches["flagship_learned"], flag_ms["flagship_learned"], _ = run_flagship(
         "flagship_learned", lambda *a, **kw: learned_fused_retrieval_step(params, *a, **kw),
         rows_bf16, fbatches[:1], view_proj, smi, ("group_max_packed",), use_pallas=True)
     phase_s["[10] flagship paths"] = time.perf_counter() - t0
@@ -1121,6 +1322,12 @@ def main() -> None:
                 idx_rs, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True,
                 sparse_mode="q8r", sparse_candidates=Q8R_CANDIDATES,
                 dense_rescore_pool=DENSE_POOL, doc_imp_bits=imp_bits)),
+            ("q8c", lambda: ensemble_retrieval_step(
+                idx_rs, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True,
+                sparse_mode="q8c", sparse_candidates=Q8R_CANDIDATES,
+                dense_rescore_pool=DENSE_POOL, doc_imp_bits=imp_bits)),
+            ("sort", lambda: ensemble_retrieval_step(
+                idx_sort, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_mode="sort")),
             ("flagship_int8", lambda: fused_retrieval_step(
                 *fbatches[1][:1], view_proj, idx.corpus_rows, fbatches[1][1], k=TOP_K,
                 k_out=TOP_K, corpus_scale=idx.d_scale)),
@@ -1153,7 +1360,8 @@ def main() -> None:
                                              tpu + "dense_topk.py:258", "int8_global"),
             "streaming_group_max": (src + "group_max_scores.cu", tpu + "streaming_topk.py:91",
                                     "streaming")}
-    paths = {"q8": q8_launches, "q8r": q8r_launches, "q8r_fallback": fb_launches,
+    paths = {"q8": q8_launches, "q8r": q8r_launches, "q8c": q8c_launches,
+             "sort": sort_launches, "window_rescore": win_launches, "q8r_fallback": fb_launches,
              "splade_q8_tq32": long_launches["q8"], "splade_q8r_tq32": long_launches["q8r"],
              **flag_launches, **entry}
     kernels = []
@@ -1166,9 +1374,10 @@ def main() -> None:
                         **res[name], **({"ptxas": ptxas} if ptxas else {})})
     for name, sec in phase_s.items():
         log(f"  {name}: {sec:.1f} s")
-    steady = {"q8": q8_ms, "q8r": q8r_ms, **flag_ms}
+    steady = {"q8": q8_ms, "q8r": q8r_ms, "q8c": q8c_ms, "sort": sort_ms, **flag_ms}
     steady = {k: round(statistics.median(v[1:] or v), 3) for k, v in steady.items()}
     log(f"  total {time.perf_counter() - t_all:.1f} s; steady median step ms {steady}; "
+        f"q8c certified_frac {certified_frac}; window-rescore step {win_ms[0]:.1f} ms; "
         f"fallback call {fb_ms:.1f} ms; SPLADE Tq {LONG_TQ} calls ms {long_ms}; host build "
         f"{host_s:.1f} s; kernel build {build_s:.1f} s; {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,13 @@
 // -0). Only the order of the final sum over the row differs from the plain
 // version (rtol 4e-6 at Tq <= 16 non-negative terms).
 //
+// MATCHED (a second instance, for the certified scorer): the row's total
+// matched query weight, sum_p matched(term_p), accumulated beside the sum
+// and written to a second output. It reads the same bytes and writes 4 B a
+// candidate more; the instance without it keeps the code above (the same
+// SASS as before the output existed). Queries of more than 32 terms take
+// its 4-byte-load route whatever the table.
+//
 // Bound on the H100: random-row DRAM reads. At the rank-safe bench shape
 // (B 1024, C 256, Td 128 int32) one view reads 1024 * 256 * 512 B = 134 MB.
 //
@@ -129,12 +136,12 @@ struct Share {
 };
 
 // V entries a lane per 32 V-entry chunk of a row (V = 4: 16-byte loads),
-// kDepth rows in flight.
-template <int TQ, int V>
+// kDepth rows in flight; MATCHED: the matched weights' sum to `matched` too.
+template <int TQ, int V, bool MATCHED>
 __global__ void __launch_bounds__(kThreads) rescore_match_kernel(
     const int* __restrict__ doc, long long N, int Td, const int* __restrict__ ids, int C,
     int blocks_c, const int* __restrict__ q_terms, const float* __restrict__ q_weights, int Tq,
-    int imp_bits, float* __restrict__ out) {
+    int imp_bits, float* __restrict__ out, float* __restrict__ matched) {
   constexpr int D = kDepth;
   const Share sh(ids, N, C, blocks_c);
   if (sh.n <= 0) return;                    // warp-uniform
@@ -144,10 +151,12 @@ __global__ void __launch_bounds__(kThreads) rescore_match_kernel(
   for (int k0 = 0; k0 < sh.n; k0 += D) {
     const int* row[D];
     float acc[D];
+    float macc[MATCHED ? D : 1];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       row[d] = doc + static_cast<long long>(__shfl_sync(kFull, sh.id, min(k0 + d, sh.n - 1))) * Td;
       acc[d] = 0.f;
+      if constexpr (MATCHED) macc[d] = 0.f;
     }
     // one chunk of every row at a time: the rows in flight come from the d
     // loops, and an unrolled chunk loop would only hold more registers
@@ -174,8 +183,16 @@ __global__ void __launch_bounds__(kThreads) rescore_match_kernel(
         for (int d = 0; d < D; ++d) {
           if (k0 + d < sh.n) {
 #pragma unroll
-            for (int u = 0; u < V; ++u)
-              acc[d] = __fadd_rn(acc[d], contrib(terms, e[d][u], imp_bits, mask));
+            for (int u = 0; u < V; ++u) {
+              if constexpr (MATCHED) {
+                const unsigned x = static_cast<unsigned>(e[d][u]);
+                const float m = terms.matched(static_cast<int>(x >> imp_bits));
+                acc[d] = __fadd_rn(acc[d], __fmul_rn(m, static_cast<float>(x & mask)));
+                macc[d] = __fadd_rn(macc[d], m);
+              } else {
+                acc[d] = __fadd_rn(acc[d], contrib(terms, e[d][u], imp_bits, mask));
+              }
+            }
           }
         }
       }
@@ -184,6 +201,10 @@ __global__ void __launch_bounds__(kThreads) rescore_match_kernel(
     for (int d = 0; d < D; ++d) {
       const float s = warp_sum(acc[d]);
       if (lane == 0 && k0 + d < sh.n) out[sh.b * C + sh.c0 + k0 + d] = s;
+      if constexpr (MATCHED) {
+        const float m = warp_sum(macc[d]);
+        if (lane == 0 && k0 + d < sh.n) matched[sh.b * C + sh.c0 + k0 + d] = m;
+      }
     }
   }
 }
@@ -191,9 +212,17 @@ __global__ void __launch_bounds__(kThreads) rescore_match_kernel(
 template <int TQ, int V>
 cudaError_t launch(unsigned grid, cudaStream_t st, const int* doc, long long N, int Td,
                    const int* ids, int C, int blocks_c, const int* qt, const float* qw, int Tq,
-                   int imp_bits, float* out) {
-  rescore_match_kernel<TQ, V><<<grid, kThreads, 0, st>>>(doc, N, Td, ids, C, blocks_c, qt, qw,
-                                                         Tq, imp_bits, out);
+                   int imp_bits, float* out, float* matched) {
+  if (matched) {
+    // over 32 query terms with 16-byte loads ptxas spilled this instance's
+    // registers (12 bytes): it takes the 4-byte loads, which read any table
+    constexpr int VM = TQ == 0 ? 1 : V;
+    rescore_match_kernel<TQ, VM, true><<<grid, kThreads, 0, st>>>(
+        doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out, matched);
+  } else {
+    rescore_match_kernel<TQ, V, false><<<grid, kThreads, 0, st>>>(
+        doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out, matched);
+  }
   return cudaGetLastError();
 }
 
@@ -202,23 +231,29 @@ cudaError_t launch(unsigned grid, cudaStream_t st, const int* doc, long long N, 
 template <int V>
 cudaError_t launch_bucket(unsigned grid, cudaStream_t st, const int* doc, long long N, int Td,
                           const int* ids, int C, int blocks_c, const int* qt, const float* qw,
-                          int Tq, int imp_bits, float* out) {
-  if (Tq <= 8) return launch<8, V>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out);
+                          int Tq, int imp_bits, float* out, float* matched) {
+  if (Tq <= 8)
+    return launch<8, V>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out,
+                        matched);
   if (Tq <= 16)
-    return launch<16, V>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out);
+    return launch<16, V>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out,
+                         matched);
   if constexpr (V == 4) {       // with 4-byte loads ptxas spilled this bucket's registers
     if (Tq <= 32)
-      return launch<32, V>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out);
+      return launch<32, V>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out,
+                           matched);
   }
-  return launch<0, V>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out);
+  return launch<0, V>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, out,
+                      matched);
 }
 
 }  // namespace
 
 // vec: 16-byte loads (Td % 4 == 0 and a 16-byte-aligned table), else 4-byte.
+// matched: null, or a second [B, C] output of each row's matched weight.
 extern "C" int qfr_rescore_match(const void* doc_packed, long long N, int Td, const void* cand_ids,
                                  int B, int C, const void* q_terms, const void* q_weights, int Tq,
-                                 int imp_bits, int vec, void* out, void* stream) {
+                                 int imp_bits, int vec, void* out, void* matched, void* stream) {
   if (N < 1 || N > (1ll << 31) || Td < 1 || B < 0 || C < 1 || Tq < 0 || imp_bits < 1 ||
       imp_bits > 30 || (vec && Td % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -233,7 +268,8 @@ extern "C" int qfr_rescore_match(const void* doc_packed, long long N, int Td, co
   const auto qt = static_cast<const int*>(q_terms);
   const auto qw = static_cast<const float*>(q_weights);
   const auto o = static_cast<float*>(out);
+  const auto m = static_cast<float*>(matched);
   return static_cast<int>(
-      vec ? launch_bucket<4>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, o)
-          : launch_bucket<1>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, o));
+      vec ? launch_bucket<4>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, o, m)
+          : launch_bucket<1>(grid, st, doc, N, Td, ids, C, blocks_c, qt, qw, Tq, imp_bits, o, m));
 }

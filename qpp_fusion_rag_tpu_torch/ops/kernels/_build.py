@@ -46,8 +46,9 @@ SIGNATURES = {
     "qfr_bitonic_sort": (_P, _I, _I, _I, _P, _P),
     # keys, B, M, bs, start_block, out, stream
     "qfr_bitonic_topp": (_P, _I, _I, _I, _I, _P, _P),
-    # doc_packed, N, Td, cand_ids, B, C, q_terms, q_weights, Tq, imp_bits, vec, out, stream
-    "qfr_rescore_match": (_P, _LL, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
+    # doc_packed, N, Td, cand_ids, B, C, q_terms, q_weights, Tq, imp_bits, vec, out,
+    # matched (nullable), stream
+    "qfr_rescore_match": (_P, _LL, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P),
     # q, corpus_rows, d_scale, M, N, D, n_real, out, stream
     "qfr_group_max_packed_int8": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     # q, corpus, M, N, D, n_real, transposed, out, stream

@@ -65,16 +65,15 @@ def segmented_sums_presorted_i32(sids: torch.Tensor,
     return torch.where(last & svalid, sums, -1)
 
 
-def segmented_topk_presorted(sids: torch.Tensor, svals: torch.Tensor, k: int,
-                             count_bonus: bool = False):
-    """Run sums of f32 contributions over ascending ids, then the exact
-    top-k runs. -> (ids [..., k] (-1 pad), sums [..., k] (-inf pad),
-    counts [..., k] (0 pad)); count_bonus scores sum * count (CombMNZ)."""
-    M = sids.shape[-1]
+def run_totals_presorted(sids: torch.Tensor, svals: torch.Tensor):
+    """Each run's f32 total and count over ascending ids (SENTINEL =
+    invalid), read at the run's LAST position; other positions hold partial
+    figures. -> (sums, counts, at_last: the last positions of real runs).
+    The totals are differences of one blocked cumsum of the row, shifted
+    non-negative first so that a run's predecessor total is a running
+    maximum; their error grows with the row's total mass."""
     svalid = sids != SENTINEL
     last = _run_last(sids)
-    # shift values non-negative so per-run cumsums are monotone and the
-    # previous run's last cumsum reduces to a running maximum
     vmin = svals.amin(dim=-1, keepdim=True).clamp_max(0.0)
     sv = torch.where(svalid, svals - vmin, 0.0)
     c = cumsum_blocked(sv)
@@ -88,9 +87,18 @@ def segmented_topk_presorted(sids: torch.Tensor, svals: torch.Tensor, k: int,
         return torch.where(torch.isneginf(run), 0.0, run)
 
     counts = cnt - prev_last(cnt)
-    sums = (c - prev_last(c)) + vmin * counts
+    return (c - prev_last(c)) + vmin * counts, counts, last & svalid
+
+
+def segmented_topk_presorted(sids: torch.Tensor, svals: torch.Tensor, k: int,
+                             count_bonus: bool = False):
+    """Run sums of f32 contributions over ascending ids, then the exact
+    top-k runs. -> (ids [..., k] (-1 pad), sums [..., k] (-inf pad),
+    counts [..., k] (0 pad)); count_bonus scores sum * count (CombMNZ)."""
+    M = sids.shape[-1]
+    sums, counts, at_last = run_totals_presorted(sids, svals)
     scores = sums * counts if count_bonus else sums
-    scores = torch.where(last & svalid, scores, float("-inf"))
+    scores = torch.where(at_last, scores, float("-inf"))
     top_vals, top_idx = topk_first(scores, min(k, M))
     top_ids = torch.gather(sids, -1, top_idx)
     ok = torch.isfinite(top_vals)

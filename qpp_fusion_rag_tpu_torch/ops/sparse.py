@@ -1,22 +1,30 @@
-"""Quantized-sort (q8) sparse scoring: BM25 / learned-impact views, plain
-("q8") and rank-safe ("q8r").
+"""Sparse scoring over posting windows: the pair-sort engines ("sort"), the
+sort-free window rescore, quantized-sort (q8), rank-safe (q8r) and
+certified (q8c).
 
-Counterpart of qpp_fusion_rag_tpu/ops/sparse.py for those two paths.
+Counterpart of qpp_fusion_rag_tpu/ops/sparse.py.
 
 Host half (numpy): the per-term 8-bit quantization grid, the plain and the
-dual doc-ordered posting layouts and the packed doc-major term vectors,
-byte-equal to the JAX packers so one built index serves both packages.
+dual doc-ordered posting layouts and the packed and exact doc-major term
+vectors, byte-equal to the JAX packers so one built index serves both
+packages.
 
 Device half (torch): each query term reads a `p_cap`-wide window of its
-packed (doc << 8 | uint8 impact) postings (K3), requantizes every
-contribution to 8 bits against the query's largest term weight, packs it
-back into the low byte of the doc key, then sorts the keys and sums each
-doc's run exactly in int32 (K2, for rows of up to 65,536 keys; longer rows
-take torch.sort and segmented sums, the JAX package's route for them); a
-top-k over the run sums follows. The
-rank-safe mode instead pools the top candidates by a second bitonic pass
-over (sum << 16 | position) keys (K4, or K5 when the pool is most of the
-row) and rescores every pooled doc against its full doc vector (K6).
+postings (K3). The pair-sort engines sum each doc's f32 contributions over
+the id-sorted row (segment.segmented_topk); the window rescore pools the
+largest raw contributions and sums every pooled doc's contributions from
+the same id-sorted row. The q8 engines requantize every contribution to 8
+bits against the query's largest term weight, pack it back into the low
+byte of the (doc << 8 | q8) key, then sort the keys and sum each doc's run
+exactly in int32 (K2, for rows of up to 65,536 keys; longer rows take
+torch.sort and segmented sums, the JAX package's route for them); a top-k
+over the run sums follows. The rank-safe mode instead pools the top
+candidates by a second bitonic pass over (sum << 16 | position) keys (K4,
+or K5 when the pool is most of the row) and rescores every pooled doc
+against its full doc vector (K6). The certified mode sums (q8 + 1) per
+contribution, a sound per-doc upper bound, pools by it and rescores the
+whole pool (K6 with its matched-weight output where the doc vectors are
+truncated), then proves per query that the returned k are the true top-k.
 
 Pool tie order: the bitonic pool breaks tied q8 sums by position, highest
 first (the TPU's route), where lax.top_k takes the lowest index first; the
@@ -31,6 +39,7 @@ every selection is exact, which meets JAX's approximate-recall contracts.
 from __future__ import annotations
 
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,7 +52,13 @@ from qpp_fusion_rag_tpu_torch.ops.kernels.bitonic import (
 )
 from qpp_fusion_rag_tpu_torch.ops.kernels.row_gather import rescore_match
 from qpp_fusion_rag_tpu_torch.ops.kernels.window_gather import gather_windows
-from qpp_fusion_rag_tpu_torch.ops.segment import segmented_sums_presorted_i32, topk_first
+from qpp_fusion_rag_tpu_torch.ops.segment import (
+    SENTINEL,
+    run_totals_presorted,
+    segmented_sums_presorted_i32,
+    segmented_topk,
+    topk_first,
+)
 
 ALIGN = 1024          # array-length granule of the shared packed layout
 _MAX_DMA_CAP = 4096   # largest p_cap the packed layout is padded for
@@ -278,6 +293,36 @@ def pack_doc_vectors(
     return doc_packed.astype(np.int32), doc_scale, td
 
 
+def pack_doc_vectors_exact(
+    offsets: np.ndarray,       # [T+1] CSR term offsets
+    flat_docs: np.ndarray,     # [P] doc ids
+    flat_weights: np.ndarray,  # [P] f32 impacts
+    n_docs: int,
+):
+    """Invert term-major CSR postings to unquantized doc-major vectors, the
+    certified scorer's f32 rescore route: -> (doc_terms int32 [N, Td], -1
+    pad (matches no query term), doc_w f32 [N, Td], Td), Td the longest
+    doc. Twice the packed layout's bytes."""
+    offsets = np.asarray(offsets, dtype=np.int64)
+    flat_docs = np.asarray(flat_docs)
+    flat_weights = np.asarray(flat_weights, dtype=np.float32)
+    T = len(offsets) - 1
+    term_of = np.repeat(np.arange(T, dtype=np.int64), np.diff(offsets))
+    order = np.argsort(flat_docs, kind="stable")
+    d_sorted = flat_docs[order]
+    t_sorted = term_of[order]
+    w_sorted = flat_weights[order]
+    bounds = np.searchsorted(d_sorted, np.arange(n_docs + 1))
+    counts = np.diff(bounds)
+    td = max(int(counts.max()) if n_docs else 1, 1)
+    doc_terms = np.full((n_docs, td), -1, dtype=np.int32)
+    doc_w = np.zeros((n_docs, td), dtype=np.float32)
+    col = np.arange(len(d_sorted)) - np.repeat(bounds[:-1], counts)
+    doc_terms[d_sorted, col] = t_sorted.astype(np.int32)
+    doc_w[d_sorted, col] = w_sorted
+    return doc_terms, doc_w, td
+
+
 # =============================================================================
 # Device half (torch)
 # =============================================================================
@@ -301,6 +346,15 @@ def _packed_windows(packed, s_clamped, cap: int):
     return win.reshape(B, Tq, cap)
 
 
+def _window_mask(s_clamped, starts, lens, cap: int):
+    """[B, Tq, cap] True at the positions of each window that lie in its
+    term's postings (a clamped window reads past its start)."""
+    pos = s_clamped[..., None] + torch.arange(cap, dtype=torch.int32,
+                                              device=s_clamped.device)
+    eff = torch.clamp(lens, max=cap)
+    return (pos >= starts[..., None]) & (pos < (starts + eff)[..., None])
+
+
 def q8_windows(offsets, q_terms, p_cap: int, P: int, presorted: bool = False):
     """Window geometry of the q8 scorers for [B, Tq] query terms over a
     packed array of length P. -> (s_clamped [B, Tq] int32: the starts K3
@@ -319,10 +373,167 @@ def q8_windows(offsets, q_terms, p_cap: int, P: int, presorted: bool = False):
     return s_clamped, starts, lens, parity, cap
 
 
+def _gather_windows(flat_docs, flat_weights, starts, lens, cap: int):
+    """[B, Tq] windows of `cap` postings from unpacked CSR arrays, both
+    through K3 (the f32 weights through their int32 bits; weights of
+    another type are converted to f32 first). Starts clamp at the array
+    end and the positions outside a term's postings are masked.
+    -> (docs [B, Tq, cap] int32, SENTINEL fill; weights f32, 0 fill;
+    wanted mask)."""
+    P = flat_docs.shape[0]
+    cap = min(cap, P)
+    s_clamped = torch.clamp(starts, max=max(P - cap, 0)).to(torch.int32)
+    w32 = flat_weights if flat_weights.dtype == torch.float32 else flat_weights.float()
+    d_win = _packed_windows(flat_docs, s_clamped, cap)
+    w_win = _packed_windows(w32.view(torch.int32), s_clamped, cap).view(torch.float32)
+    wanted = _window_mask(s_clamped, starts, lens, cap)
+    return (torch.where(wanted, d_win, SENTINEL), torch.where(wanted, w_win, 0.0),
+            wanted)
+
+
+def _unpacked_contributions(flat_docs, flat_weights, offsets, q_terms, q_weights,
+                            p_cap: int, term_scales=None):
+    """-> (docs [B, M], vals [B, M] f32): every window posting's doc id
+    (SENTINEL off the postings) and weight x query weight, the dequant
+    scale folded into the query weight where given."""
+    _, starts, lens, _, _ = q8_windows(offsets, q_terms, p_cap, flat_docs.shape[0])
+    if term_scales is not None:
+        q_weights = q_weights * term_scales[q_terms.clamp_min(0).long()]
+    docs, w, _ = _gather_windows(flat_docs, flat_weights, starts, lens, p_cap)
+    B = q_terms.shape[0]
+    return docs.reshape(B, -1), (w * q_weights[..., None]).reshape(B, -1)
+
+
+def _packed_contributions(packed, offsets, term_scales, q_terms, q_weights, p_cap: int):
+    """_unpacked_contributions over packed (doc << 8 | uint8 impact)
+    postings: one K3 gather of int32 windows."""
+    qw = q_weights * term_scales[q_terms.clamp_min(0).long()]
+    s_clamped, starts, lens, _, cap = q8_windows(offsets, q_terms, p_cap, packed.shape[0])
+    win = _packed_windows(packed, s_clamped, cap)
+    wanted = _window_mask(s_clamped, starts, lens, cap)
+    docs = torch.where(wanted, win >> 8, SENTINEL)     # packed values are >= 0
+    vals = torch.where(wanted, (win & 0xFF).to(torch.float32) * qw[..., None], 0.0)
+    B = q_terms.shape[0]
+    return docs.reshape(B, -1), vals.reshape(B, -1)
+
+
+def _segmented_scores(docs, vals, k: int):
+    ids, scores, _ = segmented_topk(docs, vals, k)
+    return scores, ids
+
+
+def sparse_score_topk(
+    flat_docs: torch.Tensor,     # [P] int32 CSR doc ids (impact-ordered per term)
+    flat_weights: torch.Tensor,  # [P] f32 impacts, or uint8 quantized
+    offsets: torch.Tensor,       # [T+1] int32 CSR term offsets
+    q_terms: torch.Tensor,       # [B, Tq] int32 term ids (-1 pad)
+    q_weights: torch.Tensor,     # [B, Tq] f32 per-term query weights
+    k: int = 100,
+    p_cap: int = 1024,
+    term_scales: torch.Tensor = None,  # [T] f32 dequant scales of uint8 weights
+    exact_topk: bool = True,
+):
+    """Pair-sort sparse scoring -> (scores [B, kk] f32 desc, doc ids [B, kk]
+    int32, -1 / -inf padded), kk = min(k, Tq·p_cap): each query term's
+    window of postings (K3, docs and weights), the contributions summed per
+    doc over the id-sorted row (segment.segmented_topk: f32 cumsum
+    differences), the exact top kk. exact_topk has no effect: the selection
+    is always exact."""
+    docs, vals = _unpacked_contributions(flat_docs, flat_weights, offsets, q_terms,
+                                         q_weights, p_cap, term_scales)
+    return _segmented_scores(docs, vals, k)
+
+
+def sparse_score_topk_packed(
+    packed: torch.Tensor,        # [P] int32 (doc << 8 | uint8 impact)
+    offsets: torch.Tensor,       # [T+1] int32
+    term_scales: torch.Tensor,   # [T] f32 per-term dequant scales
+    q_terms: torch.Tensor,       # [B, Tq] int32 (-1 pad)
+    q_weights: torch.Tensor,     # [B, Tq] f32
+    k: int = 100,
+    p_cap: int = 1024,
+    exact_topk: bool = True,
+    dma_gather: bool = None,
+):
+    """sparse_score_topk over packed postings (pack_postings): one K3 gather
+    of int32 windows. Same output; exact_topk and dma_gather have no
+    effect."""
+    return _segmented_scores(*_packed_contributions(
+        packed, offsets, term_scales, q_terms, q_weights, p_cap), k)
+
+
+def _rescore_pool(docs, vals, k: int, candidates: int):
+    """The sort-free scorers' tail: pool the candidates·k largest raw
+    contributions of each row, then score every pooled doc exactly by all
+    of its contributions and take the top k. A doc's sum is its run total
+    over the id-sorted row (segment.run_totals_presorted), looked up at the
+    run's last position, so no [B, pool, M] match is formed. A doc pooled
+    twice keeps its first pool position. -> (scores [B, kk] desc, ids [B,
+    kk], -inf / -1 pad), kk = min(k, pool)."""
+    B, M = docs.shape
+    vals = torch.where(docs == SENTINEL, float("-inf"), vals)
+    pool = min(candidates * k, M)
+    _, cidx = topk_first(vals, pool)
+    cand_ids = torch.gather(docs, -1, cidx)
+    sids, order = torch.sort(docs, dim=-1, stable=True)
+    svals = torch.gather(torch.where(torch.isfinite(vals), vals, 0.0), -1, order)
+    totals, _, _ = run_totals_presorted(sids, svals)
+    last = torch.searchsorted(sids, cand_ids.contiguous(), right=True) - 1
+    sums = torch.gather(totals, -1, last)
+    csorted, corder = torch.sort(cand_ids, dim=-1, stable=True)
+    dup = torch.zeros_like(csorted, dtype=torch.bool)
+    dup[:, 1:] = csorted[:, 1:] == csorted[:, :-1]
+    is_dup = torch.zeros_like(dup).scatter(1, corder, dup)
+    sums = torch.where(is_dup | (cand_ids == SENTINEL), float("-inf"), sums)
+    top_vals, top_idx = topk_first(sums, min(k, pool))
+    top_ids = torch.gather(cand_ids, -1, top_idx)
+    ok = torch.isfinite(top_vals)
+    return (torch.where(ok, top_vals, float("-inf")), torch.where(ok, top_ids, -1))
+
+
+def sparse_rescore_topk(
+    flat_docs: torch.Tensor,
+    flat_weights: torch.Tensor,
+    offsets: torch.Tensor,
+    q_terms: torch.Tensor,
+    q_weights: torch.Tensor,
+    k: int = 100,
+    p_cap: int = 1024,
+    candidates: int = 4,         # candidate pool = candidates * k
+    term_scales: torch.Tensor = None,
+):
+    """Sort-free sparse scoring over unpacked postings -> (scores [B, kk]
+    desc, ids [B, kk], -1 padded): a pool of the candidates·k largest raw
+    contributions, each pooled doc rescored by all of its window
+    contributions (_rescore_pool)."""
+    return _rescore_pool(*_unpacked_contributions(
+        flat_docs, flat_weights, offsets, q_terms, q_weights, p_cap, term_scales),
+        k, candidates)
+
+
+def sparse_rescore_topk_packed(
+    packed: torch.Tensor,        # [P] int32 (doc << 8 | uint8 impact)
+    offsets: torch.Tensor,       # [T+1] int32
+    term_scales: torch.Tensor,   # [T] f32 per-term dequant scales
+    q_terms: torch.Tensor,       # [B, Tq] int32 (-1 pad)
+    q_weights: torch.Tensor,     # [B, Tq] f32
+    k: int = 100,
+    p_cap: int = 1024,
+    candidates: int = 4,
+    dma_gather: bool = None,
+):
+    """sparse_rescore_topk over packed postings (one K3 gather of int32
+    windows); dma_gather has no effect."""
+    return _rescore_pool(*_packed_contributions(
+        packed, offsets, term_scales, q_terms, q_weights, p_cap), k, candidates)
+
+
 def _q8_keys(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
-             presorted: bool = False):
+             presorted: bool = False, return_win_min: bool = False):
     """Gather windows and form the sort keys (doc << 8 | q8).
-    -> (keys [B, Tq·cap] int32, wmax_col [B, 1] f32, start_block)."""
+    -> (keys [B, Tq·cap] int32, wmax_col [B, 1] f32, start_block), plus
+    win_min [B, Tq] int32 with return_win_min: the least stored impact over
+    each window's postings, 255 for an empty window."""
     tq_valid = q_terms >= 0
     terms = torch.where(tq_valid, q_terms, 0).long()
     qw = q_weights * term_scales[terms]
@@ -333,10 +544,7 @@ def _q8_keys(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
     s_clamped, starts, lens, parity, cap = q8_windows(
         offsets, q_terms, p_cap, packed.shape[0], presorted)
     win = _packed_windows(packed, s_clamped, cap)
-    pos = s_clamped[..., None] + torch.arange(cap, dtype=torch.int32,
-                                              device=packed.device)
-    eff = torch.clamp(lens, max=cap)
-    wanted = (pos >= starts[..., None]) & (pos < (starts + eff)[..., None])
+    wanted = _window_mask(s_clamped, starts, lens, cap)
     imp = (win & 0xFF).to(torch.float32)
     prod = imp * ratio[..., None]      # one f32 rounding, then half-to-even
     q8 = torch.round(prod).to(torch.int32)
@@ -355,17 +563,24 @@ def _q8_keys(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
     start_block = 2
     if presorted and cap == p_cap and cap & (cap - 1) == 0 and 2 * cap <= M:
         start_block = 2 * cap
+    if return_win_min:
+        win_min = torch.where(wanted, win & 0xFF, 255).amin(dim=-1).to(torch.int32)
+        return keys, wmax_col, start_block, win_min
     return keys, wmax_col, start_block
 
 
-def _sort_row_sums(keys):
+def _sort_row_sums(keys, plus_one: bool = False):
     """Sort + run sums for rows longer than K2 takes: the JAX package's
     route for every row it does not give its bitonic kernel (lax.sort, then
     segmented sums). The descending windows' INT32_MIN pad folds into
-    INT32_MAX first, as there. -> (sums, sids) as bitonic_segsum_rows."""
+    INT32_MAX first, as there; plus_one adds 1 to each real q8 value and 0
+    to a pad. -> (sums, sids) as bitonic_segsum_rows."""
     skeys = torch.sort(torch.where(keys == INT32_MIN, INT32_MAX, keys), dim=-1).values
     sids = (skeys >> 8) & 0xFFFFFF
-    return segmented_sums_presorted_i32(sids, skeys & 0xFF), sids
+    q8 = skeys & 0xFF
+    if plus_one:
+        q8 = q8 + (sids < SID_INVALID).to(torch.int32)
+    return segmented_sums_presorted_i32(sids, q8), sids
 
 
 def _q8_row_sums(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
@@ -373,26 +588,29 @@ def _q8_row_sums(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
                  return_win_min: bool = False):
     """Windowed q8 core. -> (sums [B, M] int32 run totals at run-last
     positions, -1 elsewhere and on pads; sids [B, M] doc ids (>= 0x7FFFFF:
-    pad); wmax_col [B, 1] f32 dequant scale).
+    pad); wmax_col [B, 1] f32 dequant scale), plus win_min [B, Tq] int32
+    (_q8_keys) with return_win_min.
+
+    plus_one=True sums (q8 + 1) per contribution, so a run total is q8sum
+    + run length: wmax · (q8sum + cnt) bounds the doc's true windowed score
+    from above, each contribution's two roundings (the q8 requantization
+    and the packed uint8 impact) staying under one wmax unit.
 
     The route is decided by the row length M = Tq * cap alone, as the JAX
     package decides it: rows of up to MAX_ROW (65,536) keys go to K2
     (bitonic_segsum_rows: the kernel for a CUDA tensor, its plain version
     for a CPU one), longer rows to _sort_row_sums, on either device. It is
     not a fallback: a CUDA row of <= 65,536 keys launches K2 or raises."""
-    if plus_one or return_win_min:
-        raise NotImplementedError(
-            "plus_one / return_win_min serve the certified q8c scorer, which "
-            "is not ported yet (ROADMAP Queue 1, certified mode)")
-    keys, wmax_col, start_block = _q8_keys(
-        packed, offsets, term_scales, q_terms, q_weights, p_cap, presorted)
+    keys, wmax_col, start_block, *win_min = _q8_keys(
+        packed, offsets, term_scales, q_terms, q_weights, p_cap, presorted,
+        return_win_min=return_win_min)
     if keys.shape[1] <= MAX_ROW:
-        sums, sids = bitonic_segsum_rows(keys, start_block=start_block,
+        sums, sids = bitonic_segsum_rows(keys, start_block=start_block, plus_one=plus_one,
                                          max_run=q_terms.shape[1])
     else:
-        sums, sids = _sort_row_sums(keys)
+        sums, sids = _sort_row_sums(keys, plus_one)
     sums = torch.where(sids >= SID_INVALID, -1, sums)
-    return sums, sids, wmax_col
+    return (sums, sids, wmax_col, *win_min)
 
 
 def sparse_score_topk_q8(
@@ -454,8 +672,9 @@ def sparse_score_topk_q8(
 def _can_bitonic_pool(M: int, tq: int) -> bool:
     """_bitonic_pool's requirements: keys pack as (sum << 16 | position), so
     positions need M <= 2^16 and row sums < 2^15 (tq terms x 256 per
-    contribution). The port's q8 rows always come from K2 (or its plain
-    version), so no "bitonic used" flag is needed."""
+    contribution: 256 covers the certified scorer's plus_one sums). The
+    port's q8 rows always come from K2 (or its plain version), so no
+    "bitonic used" flag is needed."""
     return M <= (1 << 16) and tq * 256 < (1 << 15)
 
 
@@ -494,29 +713,51 @@ def _bitonic_pool(sums, sids, pool: int, wmax_col):
     return cv, ci, outside_max
 
 
+def _exact_rescore_scores_f32(cand_ids, doc_terms, doc_w, q_terms, q_weights):
+    """The f32 rescore of the certified scorer: every candidate's raw
+    weights (pack_doc_vectors_exact) times the matched query weight, with
+    torch ops in the reference's order (the matched weight accumulated over
+    the query terms in order, then one sum over the row). Query and doc
+    pads are both -1, but pad query weights are zeroed, so pad-pad matches
+    add nothing. -> scores [B, C] f32, -inf at invalid ids."""
+    B, C = cand_ids.shape
+    qw = torch.where(q_terms >= 0, q_weights, 0.0)
+    safe = cand_ids.clamp_min(0).long().reshape(-1)
+    t = doc_terms[safe].reshape(B, C, -1)
+    w = doc_w[safe].reshape(B, C, -1)
+    matched = torch.zeros_like(w)
+    for j in range(q_terms.shape[1]):
+        matched = matched + torch.where(t == q_terms[:, j, None, None],
+                                        qw[:, j, None, None], 0.0)
+    return torch.where(cand_ids >= 0, (matched * w).sum(dim=-1), float("-inf"))
+
+
 def _exact_rescore_scores(cand_ids, doc_packed, doc_scale, q_terms, q_weights,
                           term_scales=None, imp_bits: int = 8, sort_ids: bool = False,
                           return_unmatched: bool = False):
     """Every candidate scored against its full doc-major term vector:
     doc_scale[d] · Σ_p imp_p · qw(term_p), the sums from K6 (its plain
-    version on the CPU). term_scales [T] f32, where given, folds into the
-    query weights first, as in the JAX function: qw = where(q >= 0,
-    q_weights, 0) · term_scales[max(q, 0)], one f32 product.
+    version on the CPU), qw = where(q >= 0, q_weights, 0), times
+    term_scales[max(q, 0)] where given (one f32 product, as in the JAX
+    function).
     -> (cand_ids [B, C] (ascending when sort_ids), scores [B, C] f32, -inf
-    at invalid ids)."""
-    if return_unmatched:
-        raise NotImplementedError(
-            "return_unmatched serves the certified q8c scorer, which is not "
-            "ported yet (ROADMAP Queue 1, certified mode)")
+    at invalid ids), plus unmatched [B, C] f32 with return_unmatched: Σ_j
+    qw_j less the query weight the row matched, at least 0 (a row holds a
+    term at most once) — K6's matched-weight output, the multiplier of
+    pack_doc_vectors' tail_max bound for rows truncated at doc_cap."""
     if sort_ids:
         cand_ids = torch.sort(cand_ids, dim=-1).values
+    qw = torch.where(q_terms >= 0, q_weights, 0.0)
     if term_scales is not None:
-        qw = torch.where(q_terms >= 0, q_weights, 0.0)
-        q_weights = qw * term_scales[q_terms.clamp_min(0).long()]
+        qw = qw * term_scales[q_terms.clamp_min(0).long()]
     sums = rescore_match(doc_packed, cand_ids.contiguous(), q_terms.contiguous(),
-                         q_weights.contiguous(), imp_bits)
+                         qw.contiguous(), imp_bits, return_matched=return_unmatched)
+    if return_unmatched:
+        sums, matched = sums
     safe = cand_ids.clamp_min(0).long()
     scores = torch.where(cand_ids >= 0, sums * doc_scale[safe], float("-inf"))
+    if return_unmatched:
+        return cand_ids, scores, (qw.sum(dim=1, keepdim=True) - matched).clamp_min(0.0)
     return cand_ids, scores
 
 
@@ -586,3 +827,158 @@ def sparse_score_topk_q8_rescored(
         ci = torch.where(torch.isfinite(cs), torch.gather(sids, -1, cidx), -1)
     return sparse_exact_rescore(cs, ci, doc_packed, doc_scale, q_terms, q_weights, k=k,
                                 imp_bits=imp_bits, sort_ids=sort_ids)
+
+
+# =============================================================================
+# Certified mode (q8c): q8r plus a per-query exactness certificate
+# =============================================================================
+
+class Certificate(NamedTuple):
+    """sparse_score_topk_q8_certified's result and the two figures its
+    tie band is made of: tau = tie_rel_eps · (|ret_lb| + |bound|)."""
+    scores: torch.Tensor      # [B, k] f32 desc, -inf pad
+    ids: torch.Tensor         # [B, k] int32, -1 pad
+    certified: torch.Tensor   # [B] bool
+    slack: torch.Tensor       # [B] f32
+    ret_lb: torch.Tensor      # [B] f32: the least returned score, less its rescore slack
+    bound: torch.Tensor       # [B] f32: the upper bound of any doc outside the pool
+
+
+def certify(packed, offsets, term_scales, doc_packed, doc_scale, q_terms, q_weights,
+            k: int = 100, p_cap: int = 1024, candidates: int = 1024, bitonic: bool = None,
+            imp_bits: int = 8, doc_terms=None, doc_w=None, tie_rel_eps: float = 1e-5,
+            presorted: bool = False, tail_max=None) -> Certificate:
+    """sparse_score_topk_q8_certified with the certificate's parts
+    (Certificate)."""
+    sums, sids, wmax_col, win_min = _q8_row_sums(
+        packed, offsets, term_scales, q_terms, q_weights, p_cap, presorted=presorted,
+        plus_one=True, return_win_min=True)
+    M = sums.shape[1]
+    Tq = q_terms.shape[1]
+
+    # the pool by bound sums (q8sum + cnt): the (pool+1)-th bound bounds
+    # every doc left outside
+    pool = min(candidates, M)
+    if pool < M and bitonic is not False and _can_bitonic_pool(M, Tq):
+        _, ci, outside_ub = _bitonic_pool(sums, sids, pool, wmax_col)
+    else:
+        row_bounds = torch.where(sums >= 0, sums.to(torch.float32) * wmax_col, float("-inf"))
+        cv, cidx = topk_first(row_bounds, pool)
+        ci = torch.where(torch.isfinite(cv), torch.gather(sids, -1, cidx), -1)
+        outside_ub = row_bounds.scatter(1, cidx, float("-inf")).amax(dim=1)
+
+    # per-term window stats for the hidden-mass bound
+    tq_valid = q_terms >= 0
+    terms = torch.where(tq_valid, q_terms, 0).long()
+    region = offsets[terms + 1] - offsets[terms]
+    if presorted:
+        region = region >> 1             # [asc | desc] copies: the stored df is half
+    lens = torch.where(tq_valid, region, 0)
+    qw_raw = torch.where(tq_valid, q_weights.clamp_min(0.0), 0.0)
+    qw = torch.where(tq_valid, (qw_raw * term_scales[terms]).clamp_min(0.0), 0.0)
+    cap = min(p_cap, packed.shape[0])
+
+    # rescore the whole pool: the within-pool check needs each pooled doc's
+    # own quantization bound
+    tail_ub = None
+    if doc_terms is not None:
+        pool_scores = _exact_rescore_scores_f32(ci, doc_terms, doc_w, q_terms, q_weights)
+    elif tail_max is not None:
+        # doc_cap-truncated rows: a query term with no stored entry may be a
+        # dropped term of the doc, worth at most tail_max[d]
+        ci, pool_scores, unmatched = _exact_rescore_scores(
+            ci, doc_packed, doc_scale, q_terms, q_weights, imp_bits=imp_bits,
+            return_unmatched=True)
+        tail_ub = unmatched * tail_max[ci.clamp_min(0).long()]
+    else:
+        ci, pool_scores = _exact_rescore_scores(ci, doc_packed, doc_scale, q_terms, q_weights,
+                                                imp_bits=imp_bits)
+    kk = min(k, pool_scores.shape[1])
+    top_vals, top_idx = topk_first(pool_scores, kk)
+    okf = torch.isfinite(top_vals)
+    scores = torch.where(okf, top_vals, float("-inf"))
+    ids = torch.where(okf, torch.gather(ci, -1, top_idx), -1)
+    if kk < k:
+        scores = torch.nn.functional.pad(scores, (0, k - kk), value=float("-inf"))
+        ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
+
+    # the certificate. The dual layout keeps only a term's top cap
+    # postings, so a stored length of exactly cap may hide a tail
+    truncated = tq_valid & ((lens >= cap) if presorted else (lens > cap))
+    u_hidden = torch.where(truncated, qw * (win_min.to(torch.float32) + 0.5), 0.0).sum(dim=1)
+    # a doc in no window scores >= 0 (qw clamped >= 0), hence the 0 clamp
+    vis_bound = torch.where(torch.isfinite(outside_ub), outside_ub.clamp_min(0.0), 0.0)
+    bound = u_hidden + vis_bound
+    # rescore slack: |true - rescored| <= 0.5 · doc_scale · Σ qw_raw on the
+    # quantized rows, none on the f32 route
+    sum_qw = qw_raw.sum(dim=1)
+    if doc_terms is not None:
+        eps_c = torch.zeros_like(pool_scores)
+    else:
+        eps_c = 0.5 * doc_scale[ci.clamp_min(0).long()] * sum_qw[:, None]
+    # a truncated row only under-counts: the tail widens the upper bound alone
+    eps_up = eps_c if tail_ub is None else eps_c + tail_ub
+    eps_ret = torch.gather(eps_c, -1, top_idx)
+    ret_lb = torch.where(ids[:, :kk] >= 0, scores[:, :kk] - eps_ret, float("inf")).amin(dim=1)
+    pool_ub = torch.where(ci >= 0, pool_scores + eps_up, float("-inf"))
+    disp_ub = pool_ub.scatter(1, top_idx, float("-inf")).amax(dim=1)
+    kth = scores[:, kk - 1]
+    tau = tie_rel_eps * (ret_lb.abs() + bound.abs())
+    slack_out = ret_lb - bound           # every returned doc clears every non-pooled doc
+    slack_in = torch.where(torch.isfinite(disp_ub), ret_lb - disp_ub, float("inf"))
+    slack = torch.minimum(slack_out, slack_in)
+    certified = torch.isfinite(kth) & (slack >= -tau)
+    return Certificate(scores, ids, certified, slack, ret_lb, bound)
+
+
+def sparse_score_topk_q8_certified(
+    packed: torch.Tensor,        # [P] int32 (doc << 8 | uint8 impact)
+    offsets: torch.Tensor,       # [T+1] int32
+    term_scales: torch.Tensor,   # [T] f32
+    doc_packed: torch.Tensor,    # [N, Td] int32 doc-major (pack_doc_vectors)
+    doc_scale: torch.Tensor,     # [N] f32
+    q_terms: torch.Tensor,       # [B, Tq] int32 (-1 pad)
+    q_weights: torch.Tensor,     # [B, Tq] f32 (>= 0)
+    k: int = 100,
+    p_cap: int = 1024,
+    candidates: int = 1024,
+    dma_gather: bool = None,
+    bitonic: bool = None,
+    imp_bits: int = 8,
+    pool_recall: float = 0.95,
+    doc_terms: torch.Tensor = None,  # [N, Td] int32 (pack_doc_vectors_exact)
+    doc_w: torch.Tensor = None,      # [N, Td] f32
+    tie_rel_eps: float = 1e-5,
+    presorted: bool = False,
+    tail_max: torch.Tensor = None,   # [N] f32 (pack_doc_vectors return_tail; needed
+                                     # when doc_packed was built with a doc_cap)
+):
+    """Certified rank-exact sparse scoring -> (scores [B, k] desc, ids [B,
+    k], certified [B] bool, slack [B] f32).
+
+    The q8 windows run in plus_one mode, so each doc's run total bounds its
+    true windowed score from above; the top `candidates` bounds form the
+    pool, and the (pool+1)-th bound, plus the mass a truncated window may
+    hide (each query weight times its window's least stored impact + 0.5),
+    bounds every doc outside the pool. Every pooled doc is rescored against
+    its full doc vector: K6 on the quantized rows (with its matched-weight
+    output and tail_max on rows truncated at doc_cap), or the raw f32 rows
+    (doc_terms / doc_w). A query is certified when its least returned score,
+    less its rescore slack, clears every bound outside the returned k up to
+    the tie band tie_rel_eps · (|ret_lb| + |bound|): the returned k ids are
+    then the true top-k of the stored weights, up to swaps inside the band.
+
+    The parameters are the JAX function's, in its order. The pool is the
+    bitonic pool (K4 or K5, the TPU's route and tie order) when it is a
+    strict part of the row and bitonic is not False; else topk_first (JAX's
+    route off the TPU), with the bound outside it the largest bound left
+    unpooled. Every selection is exact, which meets pool_recall;
+    dma_gather has no effect. presorted=True reads the dual layout
+    (p_cap == build cap): a term's stored length is then half its region,
+    and a length of cap counts as truncated."""
+    if not 0.0 < pool_recall <= 1.0:
+        raise ValueError(f"pool_recall={pool_recall} must be in (0, 1]")
+    return certify(packed, offsets, term_scales, doc_packed, doc_scale, q_terms, q_weights,
+                   k=k, p_cap=p_cap, candidates=candidates, bitonic=bitonic,
+                   imp_bits=imp_bits, doc_terms=doc_terms, doc_w=doc_w,
+                   tie_rel_eps=tie_rel_eps, presorted=presorted, tail_max=tail_max)[:4]

@@ -1,8 +1,13 @@
-"""Heterogeneous ensemble serving step in q8 and rank-safe q8r mode:
+"""Heterogeneous ensemble serving step in every sparse mode of the JAX
+package:
 
-    view 1: BM25 impacts      — q8 windowed sparse scoring (K3 + K2); q8r
-                                adds the bitonic pool (K4 / K5) and the
-                                exact doc-vector rescore (K6)
+    view 1: BM25 impacts      — windowed sparse scoring over K3's windows:
+                                "sort" sums pairs over the id-sorted row,
+                                sparse_candidates > 0 rescores a pool of raw
+                                contributions, q8 sorts quantized keys (K2);
+                                q8r adds the bitonic pool (K4 / K5) and the
+                                exact doc-vector rescore (K6), q8c a bound
+                                pool and a per-query exactness certificate
     view 2: SPLADE impacts    — the same over a second index
     view 3: dense             — int8 scores + packed group max (K1); with
                                 dense_rescore_pool, the pool reranked on
@@ -12,11 +17,9 @@
 
 then the 13 QPP statistics per view and QPP-weighted fusion.
 
-Counterpart of qpp_fusion_rag_tpu/pipeline/ensemble.py for sparse_mode
-"q8" and "q8r", with QPP-column or learned MLP fusion weights; the
-certified ("q8c"), "sort" and window-rescore modes raise
-NotImplementedError until ported (ROADMAP Queue 1). Everything runs on the device the index tensors live on; there
-is no jit: PyTorch runs eagerly.
+Counterpart of qpp_fusion_rag_tpu/pipeline/ensemble.py, with QPP-column or
+learned MLP fusion weights. Everything runs on the device the index tensors
+live on; there is no jit: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ from qpp_fusion_rag_tpu_torch.ops import fusion as F
 from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import pallas_dense_topk_int8
 from qpp_fusion_rag_tpu_torch.ops.qpp import normalize_qpp_with
 from qpp_fusion_rag_tpu_torch.ops.sparse import (
+    sparse_rescore_topk_packed,
+    sparse_score_topk_packed,
     sparse_score_topk_q8,
+    sparse_score_topk_q8_certified,
     sparse_score_topk_q8_rescored,
     validate_presorted_cap,
 )
@@ -38,9 +44,6 @@ from qpp_fusion_rag_tpu_torch.pipeline.engine import (
     qpp_from_runs,
     weight_and_fuse,
 )
-
-_ROADMAP = "not ported yet (ROADMAP Queue 1)"
-
 
 class EnsembleIndexes(NamedTuple):
     """Device tensors of the ensemble (shared doc-id space 0..N).
@@ -51,8 +54,11 @@ class EnsembleIndexes(NamedTuple):
     [N, D] bf16/f32, where given, is what the rerank views and the rank-safe
     dense pool gather: the JAX rank-safe index puts those rows in its
     corpus_rows. The doc-vector fields (pack_doc_vectors) serve
-    sparse_mode "q8r"; doc_imp_bits is metadata, the imp_bits they were
-    packed with. Build through pipeline.interop.indexes_from_numpy."""
+    sparse_mode "q8r" and "q8c"; doc_imp_bits is metadata, the imp_bits they
+    were packed with. The tails (pack_doc_vectors return_tail: each doc's
+    largest dropped weight) are needed by "q8c" on doc vectors cut at a
+    doc_cap, or its certificates overclaim. Build through
+    pipeline.interop.indexes_from_numpy."""
     bm25_packed: torch.Tensor     # [P1] int32 (doc << 8 | uint8 impact)
     bm25_scales: torch.Tensor     # [T1] f32
     bm25_offsets: torch.Tensor    # [T1+1] int32
@@ -67,6 +73,8 @@ class EnsembleIndexes(NamedTuple):
     splade_doc_packed: Optional[torch.Tensor] = None  # [N, Td2] int32
     splade_doc_scale: Optional[torch.Tensor] = None   # [N] f32
     doc_imp_bits: Optional[int] = None
+    bm25_tail: Optional[torch.Tensor] = None          # [N] f32
+    splade_tail: Optional[torch.Tensor] = None        # [N] f32
 
 
 def make_sparse_scorer(sparse_mode: str, sparse_candidates: int, k: int,
@@ -75,16 +83,18 @@ def make_sparse_scorer(sparse_mode: str, sparse_candidates: int, k: int,
     """-> scorer(packed, offsets, scales, terms, qw, doc_packed=None,
     doc_scale=None) -> (scores [B, k] desc, doc ids [B, k], -1 pad).
 
-    "q8": the windowed q8 scorer (sparse_candidates must be 0: the
-    sort-free window rescore is not ported). "q8r": the rank-safe scorer,
-    a pool of sparse_candidates (512 when 0) rescored against the doc
-    vectors, which the scorer then requires."""
-    if sparse_mode in ("q8c", "sort") or (
-            sparse_mode == "q8" and sparse_candidates > 0):
-        raise NotImplementedError(
-            f"sparse_mode={sparse_mode!r} with sparse_candidates="
-            f"{sparse_candidates} is {_ROADMAP}; use sparse_mode='q8' with "
-            "sparse_candidates=0, or 'q8r'")
+    sparse_mode, as in the JAX package:
+      "sort" — pair sort over the windows (sparse_score_topk_packed);
+      "q8"   — quantized single-key sort (sparse_score_topk_q8);
+      "q8r"  — rank-safe: a pool of sparse_candidates (512 when 0) rescored
+               against the doc vectors, which the scorer then requires;
+      "q8c"  — certified: q8r with a bound pool of sparse_candidates (1024
+               when 0) and a certificate; its scorer takes tail= (the
+               index's tail_max) and returns (scores, ids, certified [B],
+               slack [B]). sort_ids is refused.
+    sparse_candidates > 0 in any other mode selects the sort-free window
+    rescore (pool = candidates·k). presorted=True (the dual layout) serves
+    q8, q8r and q8c; "sort" and the window rescore refuse it."""
     if sparse_mode == "q8r":
         cand = sparse_candidates if sparse_candidates > 0 else 512
 
@@ -96,13 +106,44 @@ def make_sparse_scorer(sparse_mode: str, sparse_candidates: int, k: int,
                 packed, offsets, scales, doc_packed, doc_scale, terms, qw, k=k,
                 p_cap=p_cap, candidates=cand, imp_bits=imp_bits, presorted=presorted,
                 sort_ids=sort_ids)
-        return scorer
-    if sparse_mode != "q8":
-        raise ValueError(f"unknown sparse_mode {sparse_mode!r}")
+    elif sparse_mode == "q8c":
+        cand = sparse_candidates if sparse_candidates > 0 else 1024
+        if sort_ids:
+            raise ValueError("sparse_mode='q8c' does not support sort_ids (no measured "
+                             "benefit on q8r, so the certified scorer never took it)")
 
-    def scorer(packed, offsets, scales, terms, qw, doc_packed=None, doc_scale=None):
-        return sparse_score_topk_q8(packed, offsets, scales, terms, qw,
-                                    k=k, p_cap=p_cap, presorted=presorted)
+        def scorer(packed, offsets, scales, terms, qw, doc_packed=None, doc_scale=None,
+                   tail=None):
+            if doc_packed is None or doc_scale is None:
+                raise ValueError("sparse_mode='q8c' needs doc-major vectors "
+                                 "(pack_doc_vectors) on the index")
+            return sparse_score_topk_q8_certified(
+                packed, offsets, scales, doc_packed, doc_scale, terms, qw, k=k,
+                p_cap=p_cap, candidates=cand, imp_bits=imp_bits, presorted=presorted,
+                tail_max=tail)
+    elif sparse_candidates > 0:
+        if presorted:
+            raise ValueError(
+                "the sort-free window rescore (sparse_candidates > 0 with mode "
+                "'sort'/'q8') does not support the presorted dual layout (it would "
+                "double-count the asc+desc copies); use sparse_mode 'q8r'")
+
+        def scorer(packed, offsets, scales, terms, qw, doc_packed=None, doc_scale=None):
+            return sparse_rescore_topk_packed(packed, offsets, scales, terms, qw, k=k,
+                                              p_cap=p_cap, candidates=sparse_candidates)
+    elif sparse_mode == "q8":
+        def scorer(packed, offsets, scales, terms, qw, doc_packed=None, doc_scale=None):
+            return sparse_score_topk_q8(packed, offsets, scales, terms, qw,
+                                        k=k, p_cap=p_cap, presorted=presorted)
+    elif sparse_mode == "sort":
+        if presorted:
+            raise ValueError("presorted layout needs sparse_mode 'q8', 'q8r' or 'q8c'")
+
+        def scorer(packed, offsets, scales, terms, qw, doc_packed=None, doc_scale=None):
+            return sparse_score_topk_packed(packed, offsets, scales, terms, qw, k=k,
+                                            p_cap=p_cap)
+    else:
+        raise ValueError(f"unknown sparse_mode {sparse_mode!r}")
     return scorer
 
 
@@ -209,7 +250,7 @@ def ensemble_retrieval_step(
     method: int = F.COMBSUM,
     qpp_index: int = 5,         # RSD
     sparse_candidates: int = 0,
-    sparse_mode: str = "sort",  # JAX's default; not ported yet: raises
+    sparse_mode: str = "sort",
     mlp_params=None,
     qpp_norm_stats=None,        # [5, 2, 13] calibration min/max
     doc_imp_bits: Optional[int] = None,   # pack_doc_vectors precision
@@ -218,13 +259,13 @@ def ensemble_retrieval_step(
     sparse_sort_ids: bool = False,        # ascending-id rescore gather
 ):
     """5-view retrieve -> QPP -> weighted fuse on idx's device.
-    -> (fused_ids [B, k_out], fused_scores [B, k_out], qpp [5, B, 13]).
+    -> (fused_ids [B, k_out], fused_scores [B, k_out], qpp [5, B, 13]);
+    sparse_mode="q8c" appends (certified [B] bool, slack [B] f32): the AND
+    of both sparse views' certificates and the smaller of their slacks.
 
     Inputs may be numpy arrays or tensors; they move to idx's device.
-    sparse_mode defaults to "sort", as in the JAX package; until that mode
-    is ported the default raises NotImplementedError, so a caller names
-    "q8" or "q8r" and never gets a quantized scorer it did not ask for.
-    doc_imp_bits is reconciled with idx.doc_imp_bits (resolve_doc_imp_bits).
+    sparse_mode as in make_sparse_scorer, "sort" by default as in the JAX
+    package. doc_imp_bits is reconciled with idx.doc_imp_bits (resolve_doc_imp_bits).
     With sparse_presorted=True, p_cap is checked against the dual layout's
     build cap first (a smaller p_cap silently reads doc-id-prefix subsets);
     the check is cached per offsets tensor, so steady-state serving pays
@@ -238,14 +279,17 @@ def ensemble_retrieval_step(
     sparse = make_sparse_scorer(sparse_mode, sparse_candidates, k, p_cap,
                                 imp_bits=imp_bits, presorted=sparse_presorted,
                                 sort_ids=sparse_sort_ids)
-    bm25_s, bm25_i = sparse(idx.bm25_packed, idx.bm25_offsets, idx.bm25_scales,
-                            _on(bm25_terms, dev, torch.int32),
-                            _on(bm25_qw, dev, torch.float32),
-                            idx.bm25_doc_packed, idx.bm25_doc_scale)
-    splade_s, splade_i = sparse(idx.splade_packed, idx.splade_offsets, idx.splade_scales,
-                                _on(splade_terms, dev, torch.int32),
-                                _on(splade_qw, dev, torch.float32),
-                                idx.splade_doc_packed, idx.splade_doc_scale)
+    certified = sparse_mode == "q8c"
+    tails = ({"tail": idx.bm25_tail}, {"tail": idx.splade_tail}) if certified else ({}, {})
+    bm25_out = sparse(idx.bm25_packed, idx.bm25_offsets, idx.bm25_scales,
+                      _on(bm25_terms, dev, torch.int32), _on(bm25_qw, dev, torch.float32),
+                      idx.bm25_doc_packed, idx.bm25_doc_scale, **tails[0])
+    splade_out = sparse(idx.splade_packed, idx.splade_offsets, idx.splade_scales,
+                        _on(splade_terms, dev, torch.int32),
+                        _on(splade_qw, dev, torch.float32),
+                        idx.splade_doc_packed, idx.splade_doc_scale, **tails[1])
+    bm25_s, bm25_i = bm25_out[:2]
+    splade_s, splade_i = splade_out[:2]
     q_emb = _on(q_emb, dev, torch.float32)
     rows = idx.corpus_rows if idx.rerank_rows is None else idx.rerank_rows
     if dense_rescore_pool > 0:
@@ -264,4 +308,9 @@ def ensemble_retrieval_step(
     qpp = normalize_qpp_with(qpp_raw, stats)
     fused_ids, fused_scores = fuse_tail(vals, ids, qpp, method, qpp_index,
                                         k_out, mlp_params)
+    if certified:
+        # both sparse views proved their top-k; the dense and rerank views'
+        # int8 / bf16 precision is the engines' own, not part of the proof
+        return (fused_ids, fused_scores, qpp, bm25_out[2] & splade_out[2],
+                torch.minimum(bm25_out[3], splade_out[3]))
     return fused_ids, fused_scores, qpp

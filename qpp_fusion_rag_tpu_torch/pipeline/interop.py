@@ -21,7 +21,7 @@ from qpp_fusion_rag_tpu_torch.pipeline.ensemble import EnsembleIndexes
 
 _INT32_MAX = 2**31 - 1
 _DOC_VECTORS = ("bm25_doc_packed", "splade_doc_packed")
-_DOC_SCALES = ("bm25_doc_scale", "splade_doc_scale")
+_PER_DOC = ("bm25_doc_scale", "splade_doc_scale", "bm25_tail", "splade_tail")
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -81,16 +81,15 @@ def indexes_from_numpy(d: Mapping[str, object], device,
     transpose and is dropped. bf16 / f32 ``corpus_rows`` (the rank-safe
     index) become ``rerank_rows``, and ``corpus_int`` [D, N] int8 is then
     required and transposed once into the int8 ``corpus_rows``. Offsets are
-    cast to int32 and ``d_scale`` flattened to [N]. The doc vectors and
-    their scales are carried where present, and ``doc_imp_bits`` records
-    their precision. The certified mode's ``*_tail`` arrays are ignored
-    until it is ported."""
+    cast to int32 and ``d_scale`` flattened to [N]. The doc vectors, their
+    scales and tails are carried where present, and ``doc_imp_bits``
+    records their precision."""
     corpus_rows, rerank_rows = _dense_layouts(d, device)
     extra = {}
     for name in _DOC_VECTORS:
         if d.get(name) is not None:
             extra[name] = _tensor(d[name], device, torch.int32)
-    for name in _DOC_SCALES:
+    for name in _PER_DOC:
         if d.get(name) is not None:
             extra[name] = _tensor(d[name], device, torch.float32).reshape(-1)
     return EnsembleIndexes(

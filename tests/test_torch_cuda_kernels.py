@@ -398,6 +398,37 @@ def test_k6_routes_and_query_buckets_match_plain(cuda, Td, C, aligned, Tq, imp_b
     torch.testing.assert_close(out.cpu(), ref, rtol=4e-6, atol=0)
 
 
+@pytest.mark.parametrize("Tq", [8, 16, 32, 40])
+@pytest.mark.parametrize("Td,C,aligned", [(128, 203, True), (96, 77, False), (130, 41, True)])
+def test_k6_matched_output_matches_plain(cuda, Td, C, aligned, Tq):
+    """The instance with the matched-weight output (the certified scorer's
+    unmatched mass): both outputs against the plain version within rtol
+    4e-6 (only the order of the row sums differs), on both load routes
+    (Td 128: 16-byte loads; Td 96 four bytes past alignment and Td 130:
+    4-byte loads), C no multiple of 64, every query bucket (Tq 8, 16, 32
+    and 40: the loop), repeated terms and an all-pad query. Its sums equal
+    the instance without the output bit for bit where both take the same
+    load route; over 32 terms it takes the 4-byte loads whatever the table
+    (its 16-byte route spilled), so the order of a row's sum differs there."""
+    doc, ids, qt, qw = _rescore_inputs(3000, Td, 5, C, Tq, 14, seed=Td * C + Tq + 1)
+    qt[2] = -1                                   # a query of pads only
+    base = torch.zeros(doc.numel() + 4, dtype=torch.int32, device=cuda)
+    table = base[(0 if aligned else 1):][:doc.numel()].view(doc.shape)
+    table.copy_(doc.to(cuda))
+    args = (table, ids.to(cuda), qt.to(cuda), qw.to(cuda), 14)
+    out, matched = _counted("rescore_match", lambda: row_gather.rescore_match(
+        *args, return_matched=True))
+    ref, ref_m = row_gather.rescore_match_plain(doc, ids, qt, qw, 14, return_matched=True)
+    torch.testing.assert_close(out.cpu(), ref, rtol=4e-6, atol=0)
+    torch.testing.assert_close(matched.cpu(), ref_m, rtol=4e-6, atol=0)
+    assert (ref_m[2] == 0).all() and (ref_m > 0).float().mean() > 0.3
+    alone = row_gather.rescore_match(*args)
+    if Tq <= 32 or not row_gather.vec_loads(table):
+        assert torch.equal(alone, out)
+    else:
+        torch.testing.assert_close(alone, out, rtol=4e-6, atol=0)
+
+
 def test_k6_unaligned_table_takes_scalar_loads(cuda):
     doc, ids, qt, qw = _rescore_inputs(4000, 128, 4, 64, 8, 14, seed=1)
     base = torch.zeros(doc.numel() + 1, dtype=torch.int32, device=cuda)

@@ -196,12 +196,23 @@ def test_rerank_candidates_matches_jax(built):
 
 
 def test_unported_modes_raise_not_implemented(built):
+    """The modes once unported are served now (tests/test_torch_sparse_modes.py):
+    q8c runs on the rank-safe index and returns JAX's 5-tuple; "sort" and the
+    window rescore refuse the presorted layout, as in JAX."""
     tidx = built["tidx"]
-    for kw in (dict(sparse_mode="q8c"), dict(sparse_mode="sort"),
-               dict(sparse_candidates=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    out = TE.ensemble_retrieval_step(built["tidx_rs"], *built["inputs"], k=K, k_out=K,
+                                     p_cap=CAP, sparse_presorted=True, sparse_mode="q8c",
+                                     doc_imp_bits=IMP_BITS)
+    assert [tuple(x.shape) for x in out] == [(B, K), (B, K), (5, B, 13), (B,), (B,)]
+    assert out[3].dtype == torch.bool
+    for kw, match in ((dict(sparse_mode="sort"), "presorted layout"),
+                      (dict(sparse_candidates=4), "window rescore")):
+        with pytest.raises(ValueError, match=match):
             TE.ensemble_retrieval_step(tidx, *built["inputs"], k=K, k_out=K, p_cap=CAP,
                                        sparse_presorted=True, **kw)
+    with pytest.raises(ValueError, match="doc-major vectors"):   # q8 index: no doc vectors
+        TE.ensemble_retrieval_step(tidx, *built["inputs"], k=K, k_out=K, p_cap=CAP,
+                                   sparse_mode="q8c", sparse_presorted=True)
     with pytest.raises(ValueError, match="unknown sparse_mode"):
         TE.make_sparse_scorer("q9", 0, K, CAP)
     with pytest.raises(ValueError, match="build cap"):
@@ -234,9 +245,10 @@ def test_interop_layouts(built):
 def test_port_imports_without_jax_yaml_or_reference(tmp_path):
     """A subprocess in which jax, yaml and the JAX package cannot be imported
     builds a tiny index with the port's own host code (postings and doc
-    vectors) and runs the slice in q8 and in q8r with a dense pool, then the
-    dense flagship step on its three routes (learned weights on one), the
-    kernel entry points of the dense family and DenseIndex's engines."""
+    vectors) and runs the slice in q8, in q8r with a dense pool and in q8c,
+    then the dense flagship step on its three routes (learned weights on
+    one), the kernel entry points of the dense family and DenseIndex's
+    engines."""
     script = tmp_path / "isolated.py"
     script.write_text(f"""
 import sys
@@ -276,11 +288,13 @@ proj = torch.randn(2, d, d, generator=g) * 0.05
 tf = np.tile(np.array([6, 6, 9, 5], np.float32), (b, 1))
 for index, kw in ((idx, dict(sparse_mode="q8")),
                   (idx_rs, dict(sparse_mode="q8r", sparse_candidates=32,
-                                dense_rescore_pool=24))):
-    ids, scores, qpp = ensemble_retrieval_step(index, bt, bq, st, sq, q, proj, tf, k=16,
-                                               k_out=16, p_cap=cap, sparse_presorted=True,
-                                               **kw)
+                                dense_rescore_pool=24)),
+                  (idx_rs, dict(sparse_mode="q8c", sparse_candidates=32))):
+    ids, scores, qpp, *cert = ensemble_retrieval_step(
+        index, bt, bq, st, sq, q, proj, tf, k=16, k_out=16, p_cap=cap,
+        sparse_presorted=True, **kw)
     assert ids.shape == (b, 16) and qpp.shape == (5, b, 13)
+    assert len(cert) == (2 if kw["sparse_mode"] == "q8c" else 0)
     assert torch.isfinite(qpp).all() and (ids[:, 0] >= 0).all()
 from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import (
     pallas_dense_topk, pallas_dense_topk_int8_global, quantize_global)
@@ -437,7 +451,10 @@ def test_interop_carries_the_rank_safe_index(built):
         np.testing.assert_array_equal(getattr(tidx, f).numpy(), arrays[f], err_msg=f)
     np.testing.assert_array_equal(tidx.d_scale.numpy(), arrays["d_scale"][0])
     assert tidx.doc_imp_bits == IMP_BITS
-    assert not hasattr(tidx, "corpus_int") and not hasattr(tidx, "bm25_tail")
+    assert not hasattr(tidx, "corpus_int")
+    for f in ("bm25_tail", "splade_tail"):
+        assert getattr(tidx, f).dtype == torch.float32
+        np.testing.assert_array_equal(getattr(tidx, f).numpy(), arrays[f], err_msg=f)
     with pytest.raises(ValueError, match="corpus_int"):
         indexes_from_numpy({k: v for k, v in arrays.items() if k != "corpus_int"}, "cpu")
     with pytest.raises(ValueError, match="corpus_int must be int8"):

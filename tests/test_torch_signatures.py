@@ -3,9 +3,9 @@ functions' parameters by the same names and in the same order (the port's
 own extras after them), and the calls the JAX package's callers make run on
 the port and agree with JAX: bit for bit on integer paths, pools and the
 dense kernels' integer-valued inputs, within rtol 4e-6 on the rescore's f32
-sums. The ensemble step's sparse_mode defaults to JAX's "sort", which the
-port does not serve yet: it raises. The dense kernel entry points take
-JAX's n_real = 0 as "every doc is real"."""
+sums. The ensemble step's sparse_mode defaults to JAX's "sort", and refuses
+the presorted layout as JAX does. The dense kernel entry points take JAX's
+n_real = 0 as "every doc is real"."""
 
 import inspect
 
@@ -49,6 +49,16 @@ def _names(fn):
     (JSP.sparse_score_topk_q8_rescored, TSP.sparse_score_topk_q8_rescored),
     (JSP.sparse_exact_rescore, TSP.sparse_exact_rescore),
     (JSP._exact_rescore_scores, TSP._exact_rescore_scores),
+    (JSP._exact_rescore_scores_f32, TSP._exact_rescore_scores_f32),
+    (JSP.sparse_score_topk_q8_certified, TSP.sparse_score_topk_q8_certified),
+    (JSP.pack_doc_vectors_exact, TSP.pack_doc_vectors_exact),
+    (JSP.sparse_score_topk, TSP.sparse_score_topk),
+    (JSP.sparse_score_topk_packed, TSP.sparse_score_topk_packed),
+    (JSP.sparse_rescore_topk, TSP.sparse_rescore_topk),
+    (JSP.sparse_rescore_topk_packed, TSP.sparse_rescore_topk_packed),
+    (JSP._rescore_pool, TSP._rescore_pool),
+    (JSP._gather_windows, TSP._gather_windows),
+    (JE.make_sparse_scorer, TE.make_sparse_scorer),
     (JK.group_max_packed_int8, TK.group_max_packed_int8),
     (JK.group_max_packed, TK.group_max_packed),
     (JK.group_max_scores, TK.group_max_scores),
@@ -308,11 +318,23 @@ def test_sparse_exact_rescore_term_scales_positional(sparse_index):
 
 
 def test_unported_rescore_and_sparse_flags_raise(sparse_index):
+    """return_unmatched, once unported, now gives JAX's unmatched query
+    weight (K6's matched output) beside the same ids and scores; an
+    approx_recall outside (0, 1] still raises."""
     ix = sparse_index
-    args = [torch.as_tensor(x) for x in (np.zeros((NB, 4), np.int32), *ix["doc"],
-                                         ix["qt"], ix["qw"])]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSP._exact_rescore_scores(*args, return_unmatched=True)
+    post = [torch.as_tensor(x) for x in (*ix["post"], ix["qt"], ix["qw"])]
+    cand = TSP.sparse_score_topk_q8(*post, k=40, p_cap=CAP, presorted=True)[1].numpy()
+    cand[:, -4:] = -1                              # and pads
+    args = (cand, *ix["doc"], ix["qt"], ix["qw"])
+    j = [np.asarray(x) for x in JSP._exact_rescore_scores(
+        *map(jnp.asarray, args), imp_bits=ix["bits"], return_unmatched=True)]
+    t = [x.numpy() for x in TSP._exact_rescore_scores(
+        *map(torch.as_tensor, args), imp_bits=ix["bits"], return_unmatched=True)]
+    np.testing.assert_array_equal(t[0], j[0])
+    np.testing.assert_allclose(t[1], j[1], rtol=4e-6, atol=0)
+    np.testing.assert_allclose(t[2], j[2], rtol=1e-5, atol=1e-5)
+    mass = np.where(ix["qt"] >= 0, ix["qw"], 0).sum(axis=1, keepdims=True)
+    assert (j[2] > 0).any() and (j[2][:, :-4] < 0.999 * mass).all()   # pooled docs match
     post = [torch.as_tensor(x) for x in (*ix["post"], ix["qt"], ix["qw"])]
     with pytest.raises(ValueError, match="approx_recall"):
         TSP.sparse_score_topk_q8(*post, p_cap=CAP, presorted=True, approx_recall=0.0)
@@ -321,8 +343,9 @@ def test_unported_rescore_and_sparse_flags_raise(sparse_index):
 # ---------------------------------------------------------- ensemble ------
 
 def test_ensemble_step_defaults_to_jax_sort_mode_which_raises(sparse_index):
-    """F2: the default sparse_mode is JAX's "sort", not a quantized one; the
-    port does not serve it yet and says so."""
+    """F2: the default sparse_mode is JAX's "sort", not a quantized one. The
+    port serves it (tests/test_torch_sparse_modes.py), and like JAX raises
+    on the presorted layout, which "sort" would read twice."""
     assert (inspect.signature(TE.ensemble_retrieval_step).parameters["sparse_mode"].default
             == inspect.signature(JE._ensemble_retrieval_step).parameters["sparse_mode"].default
             == "sort")
@@ -333,6 +356,8 @@ def test_ensemble_step_defaults_to_jax_sort_mode_which_raises(sparse_index):
                              torch.ones(8000))
     inputs = (ix["qt"], ix["qw"], ix["qt"], ix["qw"], np.zeros((NB, 16), np.float32),
               np.zeros((2, 16, 16), np.float32), np.zeros((NB, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="presorted layout needs"):
+        JE.make_sparse_scorer("sort", 0, 10, CAP, presorted=True)
+    with pytest.raises(ValueError, match="presorted layout needs"):
         TE.ensemble_retrieval_step(idx, *inputs, k=10, k_out=10, p_cap=CAP,
                                    sparse_presorted=True)

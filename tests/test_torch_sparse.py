@@ -102,12 +102,19 @@ def test_q8_row_sums_real_positions_match_jax():
 
 
 def test_q8_row_sums_refuses_unported_flags():
+    """The certified scorer's flags, once refused, are served: plus_one adds
+    each run's length to its sum at the same positions, and return_win_min
+    appends each window's least stored impact (tests/test_torch_certified.py
+    holds both against JAX)."""
     bo, packed, offsets, scales = _index("presorted", 64)
     qt, qw = _queries(bo, 4, 8, seed=1)
     args = tuple(map(torch.as_tensor, (packed, offsets, scales, qt, qw)))
-    for flag in ("plus_one", "return_win_min"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSP._q8_row_sums(*args, p_cap=64, presorted=True, **{flag: True})
+    sums, sids, _ = TSP._q8_row_sums(*args, p_cap=64, presorted=True)
+    up, up_sids, _, win_min = TSP._q8_row_sums(*args, p_cap=64, presorted=True,
+                                               plus_one=True, return_win_min=True)
+    assert torch.equal(sids, up_sids) and torch.equal(up >= 0, sums >= 0)
+    assert (up[sums >= 0] > sums[sums >= 0]).all()
+    assert win_min.shape == qt.shape and int(win_min.max()) <= 255
 
 
 # ------------------------------------- long rows: M = Tq * p_cap > 32,768 --
