@@ -25,7 +25,18 @@ drives 12 steps in the default "sort" mode and one window-rescore step
 (sparse_candidates 4) over the impact-ordered layout, one q8r BM25 call at
 8192 candidates (the pool's full-sort branch), and one
 q8 and one q8r SPLADE call of 32-term queries (rows of 65,536 keys: K2 on
-four-CTA clusters), with K2, K4 and K5 then timed alone at those rows. The
+four-CTA clusters), with K2, K4 and K5 then timed alone at those rows.
+Between them (phase 6g) it drives the sparse index layer at full size:
+SparseIndex over the BM25 CSR (docnos "d<i>", queries "q<i>" through the
+query_encoder hook) with its lazy device arrays timed, search on the
+"exact", "q8" and "q8r" engines (1024 queries, each bit-equal to the direct
+ops/sparse.py call), search_certified on 32 queries (certified ones checked
+against float64 exhaustive scores, escalated ones against the exhaustive
+"exact" pass, whose peak memory it prints), SpladeIndex.search_impacts
+(q8r), BM25Retriever.retrieve_batch (1024 queries), a TwoStageRetriever
+over 64 queries with a dense reranker on the bf16 rows, autotune_sparse on
+32 sample queries, and one build_bm25 of a small text corpus (the native
+g++ build). The
 registers and spill bytes that ptxas reported for the bitonic kernels (K2,
 K4, K5), for K6 and for the wgmma group-max instances (K1, K7, K8 / K10, K9)
 are printed after the build. The dense flagship follows (R = 5 views, 5,120
@@ -38,7 +49,8 @@ torch.profiler window of 3 steps per main path (device busy share, top
 kernels). Each path checks that every kernel it runs launched, with the
 counts set to 0 just before it. Last, the kernel-bearing views (the q8c
 certificates and the f32 route too) and the flagship's runs and fused
-outputs are cross-checked against the plain versions on CPU copies. Every
+outputs, and the index layer's "exact" and "q8" searches, are
+cross-checked against the plain versions on CPU copies. Every
 phase raises on failure and prints its seconds. The line before the last
 is a JSON summary of the ten kernels; the last line is
 
@@ -966,12 +978,9 @@ def certified_soundness(idx, view, terms, qw, csr, imp_bits):
     true = true_scores(csr, terms[rows].cpu().numpy(), qw[rows].cpu().numpy())
     ids = cert.ids[rows].cpu().numpy()
     for r, b in enumerate(rows):
-        if ok[b]:
-            best = np.sort(np.partition(true[r], -TOP_K)[-TOP_K:])[::-1]
-            got = np.sort(true[r][ids[r]])[::-1]
-            if not np.allclose(got, best, rtol=1e-5, atol=1e-5):
-                raise AssertionError(f"{view} q8c: query {b} is certified but its ids do not "
-                                     "carry the true top-k")
+        if ok[b] and not true_topk_ok(true[r], ids[r], TOP_K):
+            raise AssertionError(f"{view} q8c: query {b} is certified but its ids do not "
+                                 "carry the true top-k")
     log(f"  {view}: {int(ok.sum())} of {len(ok)} queries certified; soundness over the full "
         f"CSR in float64 on {len(rows)} queries ({int(ok[rows].sum())} certified): every "
         "certified one returned the true top-k")
@@ -1018,6 +1027,310 @@ def f32_route(idx, csr, terms, qw, imp_bits, dev):
     return cert, doc_terms, doc_w
 
 
+INDEX_SAMPLE = 32                 # search_certified's batch and autotune_sparse's sample
+TWO_STAGE_Q = 64
+SMALL_DOCS = 2000                 # the text corpus of the g++ build check
+
+
+def timed_call(fn):
+    """fn() between two synchronizations. -> (result, wall ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def launched(name, fn, expect, reps=1):
+    """fn() `reps` times with the launch counts set to 0 just before and read
+    just after; fails unless every kernel in `expect` launched.
+    -> (the last result, median ms, launch counts)."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
+
+    LAUNCHES.clear()
+    times = []
+    for _ in range(reps):
+        out, ms = timed_call(fn)
+        times.append(ms)
+    counts = dict(LAUNCHES)
+    missing = [k for k in expect if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched: {missing} ({counts})")
+    med = statistics.median(times)
+    log(f"  {name}: {med:.3f} ms (median of {reps}: {', '.join(f'{t:.3f}' for t in times)}); "
+        f"launches {counts}")
+    return out, med, counts
+
+
+def equal_np(a, b) -> bool:
+    """numpy results against tensors (or numpy), bit for bit."""
+    to = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return all(np.array_equal(to(x), to(y)) for x, y in zip(a, b))
+
+
+def true_topk_ok(true_row, ids, k):
+    """ids carry the k largest float64 scores (tie-tolerant)."""
+    best = np.sort(np.partition(true_row, -k)[-k:])[::-1]
+    return np.allclose(np.sort(true_row[ids[:k]])[::-1], best, rtol=1e-5, atol=1e-5)
+
+
+def index_layer(csr, batches, rows_bf16, idx, idx_sort, dev, smi):
+    """[6g] The sparse index layer at full size: SparseIndex over the bench
+    BM25 CSR (docnos "d<i>", queries "q<i>" of the three batches through
+    the query_encoder hook) and SpladeIndex over the SPLADE CSR; each call
+    with the launch counts set to 0 before it. -> the results and counts
+    the cross-check and the summary read."""
+    from qpp_fusion_rag_tpu_torch.index import native
+    from qpp_fusion_rag_tpu_torch.index import sparse as IS
+    from qpp_fusion_rag_tpu_torch.index.autotune import autotune_sparse
+    from qpp_fusion_rag_tpu_torch.ops import sparse as S
+    from qpp_fusion_rag_tpu_torch.retrievers.bm25 import BM25Retriever
+    from qpp_fusion_rag_tpu_torch.retrievers.splade import SpladeIndex
+    from qpp_fusion_rag_tpu_torch.retrievers.two_stage import DenseReranker, TwoStageRetriever
+
+    res = {"launches": {}, "ms": {}}
+    K3, K2, K4, K6 = ("gather_windows", "bitonic_segsum_rows", "bitonic_topp_rows",
+                      "rescore_match")
+    t0 = time.perf_counter()
+    docnos = [f"d{i}" for i in range(N_DOCS)]
+    off, docs, w = csr["bm25"]
+    ix = IS.SparseIndex(off, docs, w, np.bincount(docs, minlength=N_DOCS), docnos, "",
+                        params={"kind": "bm25"}, device=dev)
+    q_terms = np.concatenate([b[0].cpu().numpy() for b in batches])
+    q_weights = np.concatenate([b[1].cpu().numpy() for b in batches])
+
+    def encoder(texts, max_terms):
+        rows = np.fromiter((int(t[1:]) for t in texts), np.int64, len(texts))
+        return q_terms[rows], q_weights[rows]
+
+    ix.query_encoder = encoder
+    sx = SpladeIndex(*csr["splade"], docnos, SPLADE_VOCAB, device=dev)
+    log(f"  BM25 SparseIndex: {ix.num_docs} docs, {ix.num_postings} postings, max_df "
+        f"{ix.max_df}; SPLADE SpladeIndex max_df {sx.max_df}; docnos and host index "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    lazy = {}
+    for name, fn in (("exact arrays", ix._device_arrays),
+                     ("packed", lambda: ix._device_packed(0)),
+                     (f"presorted at {P_CAP}", lambda: ix._device_packed(P_CAP)),
+                     ("doc vectors", ix._device_doc_vectors),
+                     ("exact doc vectors", ix._device_doc_vectors_exact),
+                     (f"SPLADE presorted at {P_CAP}", lambda: sx._device_packed(P_CAP)),
+                     ("SPLADE doc vectors", sx._device_doc_vectors)):
+        lazy[name] = round(timed_call(fn)[1] / 1e3, 3)
+    td = ix._device_doc_vectors()[0].shape[1], ix._device_doc_vectors_exact()[0].shape[1]
+    log(f"  lazy device arrays, host + copy seconds: {lazy}; BM25 Td {td[0]} packed / "
+        f"{td[1]} exact, SPLADE Td {sx._device_doc_vectors()[0].shape[1]}")
+    res["lazy_s"] = lazy
+    # the index's own packers give the layouts the ensemble paths ran on
+    for got, want, what in ((ix._device_packed(0), (idx_sort.bm25_packed, idx_sort.bm25_offsets,
+                                                    idx.bm25_scales), "BM25 plain"),
+                            (ix._device_packed(P_CAP), (idx.bm25_packed, idx.bm25_offsets,
+                                                        idx.bm25_scales), "BM25 presorted"),
+                            (sx._device_packed(P_CAP), (idx.splade_packed, idx.splade_offsets,
+                                                        idx.splade_scales), "SPLADE presorted")):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{what}: the index's packed layout differs from the host build's")
+
+    texts = [f"q{i}" for i in range(BATCH)]
+    qt, qw = (torch.as_tensor(x, device=dev) for x in ix.encode_queries(texts))
+    p_exact = min(ix.max_df, 4096)
+    dp, dsc, bits = ix._device_doc_vectors()
+    for eng, kw, expect, direct in (
+            ("exact", {}, (K3,), lambda: S.sparse_score_topk(
+                *ix._device_arrays()[:3], qt, qw, k=TOP_K, p_cap=p_exact)),
+            ("q8", dict(p_cap=P_CAP, presorted=True), (K3, K2, K4),
+             lambda: S.sparse_score_topk_q8(*ix._device_packed(P_CAP), qt, qw, k=TOP_K,
+                                            p_cap=P_CAP, exact_topk=True, presorted=True)),
+            ("q8r", dict(p_cap=P_CAP, presorted=True, candidates=Q8R_CANDIDATES), (K3, K2, K4, K6),
+             lambda: S.sparse_score_topk_q8_rescored(
+                 *ix._device_packed(P_CAP), dp, dsc, qt, qw, k=TOP_K, p_cap=P_CAP,
+                 candidates=Q8R_CANDIDATES, imp_bits=bits, presorted=True))):
+        call = lambda: ix.search(texts, k=TOP_K, engine=eng, **kw)
+        call()                                                   # warm-up
+        out, ms, counts = launched(f"SparseIndex.search {eng} {kw or f'(p_cap {p_exact})'}, "
+                                   f"{BATCH} queries", call, expect, reps=3)
+        if not equal_np(out, direct()):
+            raise AssertionError(f"SparseIndex.search {eng}: differs from the direct ops call")
+        res[f"index_{eng}"] = out
+        res["launches"][f"index_{eng}"], res["ms"][f"index_{eng}"] = counts, ms
+    log("  search (exact, q8, q8r): bit-equal to the direct ops/sparse.py calls on the "
+        "index's arrays")
+
+    # search_certified on INDEX_SAMPLE queries at its defaults, then on CROSS_Q of
+    # them with one tight round (p_cap 256, 128 candidates), so that queries
+    # escalate to the exhaustive pass; each round and each exhaustive pass timed
+    sample = texts[:INDEX_SAMPLE]
+    orig_c, orig_e = IS.sparse_score_topk_q8_certified, IS.sparse_score_topk
+    round_ms, exh = [], []
+
+    def t_cert(*a, **kw):
+        out, ms = timed_call(lambda: orig_c(*a, **kw))
+        round_ms.append(round(ms, 3))
+        return out
+
+    def t_exact(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, ms = timed_call(lambda: orig_e(*a, **kw))
+        exh.append({"queries": a[3].shape[0], "tq": a[3].shape[1], "p_cap": kw["p_cap"],
+                    "ms": round(ms, 3),
+                    "peak_bytes": torch.cuda.max_memory_allocated() - base})
+        return out
+
+    true = true_scores(csr["bm25"], q_terms[:INDEX_SAMPLE], q_weights[:INDEX_SAMPLE])
+    IS.sparse_score_topk_q8_certified, IS.sparse_score_topk = t_cert, t_exact
+    try:
+        ladders = []
+        for qs, kw in ((sample, {}), (sample[:CROSS_Q], dict(p_cap=256, candidates=128,
+                                                            max_rounds=1))):
+            round_ms.clear()
+            (cs, ci, info), ms, counts = launched(
+                f"search_certified, {len(qs)} queries {kw or '(defaults)'}",
+                lambda: ix.search_certified(qs, k=TOP_K, **kw), (K3, K2, K4))
+            cr = info["certified_round"]
+            log(f"  rounds: {info['rounds']}; round ms {list(round_ms)}")
+            for b in np.flatnonzero(cr >= 0):
+                if not true_topk_ok(true[b], ci[b], TOP_K):
+                    raise AssertionError(f"search_certified: query {b} certified in round "
+                                         f"{cr[b]} but its ids do not carry the true top-k")
+            ladders.append((cs, ci, cr, info, list(round_ms), ms, counts))
+        res["launches"]["index_certified"], res["ms"]["index_certified"] = ladders[0][-1], \
+            ladders[0][-2]
+        esc = [(n, b) for n, lad in enumerate(ladders) for b in np.flatnonzero(lad[2] < 0)]
+        if not esc:
+            raise AssertionError("search_certified: no query reached the exhaustive pass")
+        (es, ei), ms, counts = launched(
+            f"search exact at p_cap = max_df {ix.max_df}, the {len(esc)} escalated queries",
+            lambda: ix.search([sample[b] for _, b in esc], k=TOP_K, p_cap=ix.max_df,
+                              engine="exact"), (K3,))
+    finally:
+        IS.sparse_score_topk_q8_certified, IS.sparse_score_topk = orig_c, orig_e
+    res["ms"]["exhaustive"] = ms
+    for r, (n, b) in enumerate(esc):
+        if not equal_np((ladders[n][0][b], ladders[n][1][b]), (es[r], ei[r])):
+            raise AssertionError(f"search_certified: escalated query {b} differs from "
+                                 "search(engine='exact', p_cap=max_df)")
+    for e in exh:
+        reckoned = e["queries"] * e["tq"] * e["p_cap"] * 8
+        log(f"  exhaustive pass: [{e['queries']}, {e['tq']}, {e['p_cap']}] windows of docs + "
+            f"weights = {reckoned} bytes reckoned; {e['ms']} ms; peak {e['peak_bytes']} bytes "
+            f"allocated, {e['peak_bytes'] // max(e['queries'], 1)} a query")
+    dev_max = max(float(np.abs(es[r] - true[b][ei[r]]).max()) for r, (_, b) in enumerate(esc))
+    hit = sum(true_topk_ok(true[b], ei[r], TOP_K) for r, (_, b) in enumerate(esc))
+    log(f"  certified queries carry the true float64 top-k over the full CSR; the "
+        f"{len(esc)} escalated ones equal search(exact, p_cap=max_df); that pass against "
+        f"float64: largest score error {dev_max:.4g}, the true top-k on {hit} of {len(esc)}")
+    res["certified"] = {"rounds": [lad[3]["rounds"] for lad in ladders],
+                        "round_ms": [lad[4] for lad in ladders], "exhaustive": exh,
+                        "exhaustive_max_abs_err": dev_max, "exhaustive_true_topk": hit}
+
+    st, sq = (x.cpu().numpy() for x in batches[0][2:4])
+    sdp, sds, sbits = sx._device_doc_vectors()
+    call = lambda: sx.search_impacts(st, sq, k=TOP_K, p_cap=P_CAP, engine="q8r",
+                                     candidates=Q8R_CANDIDATES, presorted=True)
+    call()
+    out, ms, counts = launched(f"SpladeIndex.search_impacts q8r, {BATCH} queries, Tq "
+                               f"{SPLADE_TQ}", call, (K3, K2, K4, K6), reps=3)
+    if not equal_np(out, S.sparse_score_topk_q8_rescored(
+            *sx._device_packed(P_CAP), sdp, sds, *(torch.as_tensor(x, device=dev)
+                                                   for x in (st, sq)),
+            k=TOP_K, p_cap=P_CAP, candidates=Q8R_CANDIDATES, imp_bits=sbits, presorted=True)):
+        raise AssertionError("SpladeIndex.search_impacts q8r differs from the direct ops call")
+    res["launches"]["splade_q8r"], res["ms"]["splade_q8r"] = counts, ms
+
+    first = BM25Retriever(ix, p_cap=P_CAP, engine="q8", presorted=True)
+    queries = {t: t for t in texts}
+    got, ms, counts = launched(f"BM25Retriever.retrieve_batch (q8, presorted), {BATCH} "
+                               "queries", lambda: first.retrieve_batch(queries, top_k=TOP_K),
+                               (K3, K2, K4))
+    s8, i8 = res["index_q8"]
+    for b, t in enumerate(texts):
+        want = [(docnos[r], float(x), n + 1) for n, (x, r) in enumerate(zip(s8[b], i8[b]))
+                if r >= 0]
+        if got[t].results != want:
+            raise AssertionError(f"BM25Retriever: query {t} differs from SparseIndex.search")
+    res["launches"]["bm25_retrieve_batch"], res["ms"]["bm25_retrieve_batch"] = counts, ms
+
+    q_emb = batches[0][4]
+
+    class DocnoText:
+        def get_text(self, docno):
+            return docno
+
+    def dense_encoder(items):
+        rows = torch.as_tensor([int(x[1:]) for x in items], device=dev)
+        return (rows_bf16 if items[0][0] == "d" else q_emb)[rows]
+
+    two = TwoStageRetriever(first, DenseReranker(dense_encoder), DocnoText(),
+                            first_stage_k=TOP_K, name="bm25_dense")
+    sub = {t: t for t in texts[:TWO_STAGE_Q]}
+    got, ms, counts = launched(f"TwoStageRetriever.retrieve_batch (BM25 q8 -> bf16 dense "
+                               f"rerank), {TWO_STAGE_Q} queries", lambda: two.retrieve_batch(
+                                   sub, top_k=TOP_K), (K3, K2, K4))
+    for b, t in enumerate(sub):
+        ids = [r for r in i8[b] if r >= 0]
+        scores = (rows_bf16[torch.as_tensor(ids, device=dev)].float() @ q_emb[b]).cpu().numpy()
+        order = np.argsort(-scores)
+        want = [(docnos[ids[j]], float(scores[j]), n + 1) for n, j in enumerate(order)]
+        if got[t].results != want:
+            raise AssertionError(f"TwoStageRetriever: query {t} differs from its reranking")
+    res["launches"]["two_stage"], res["ms"]["two_stage"] = counts, ms
+
+    cfg, ms, counts = launched(
+        f"autotune_sparse, {INDEX_SAMPLE} sample queries, baseline_chunk 8",
+        lambda: autotune_sparse(ix, sample, baseline_chunk=8), (K3, K2, K6))
+    log(f"  autotune_sparse chose {cfg.engine} p_cap {cfg.p_cap} candidates {cfg.candidates}"
+        f" recall {cfg.recall} meets_target {cfg.meets_target}; sweep "
+        f"{[(x['engine'], x['p_cap'], x['candidates'], round(x['recall'], 4)) for x in cfg.sweep]}")
+    res["launches"]["autotune_sparse"], res["ms"]["autotune_sparse"] = counts, ms
+    res["autotune"] = {k: getattr(cfg, k) for k in ("engine", "p_cap", "candidates", "recall",
+                                                   "meets_target")}
+
+    (_, build_ms) = timed_call(native.build_library)
+    rng = np.random.default_rng(9)
+    words = np.array([f"w{j}" for j in range(500)])
+    pz = 1.0 / np.arange(1, 501)
+    pz /= pz.sum()
+    corpus = [(f"s{i}", " ".join(rng.choice(words, rng.integers(8, 30), p=pz)))
+              for i in range(SMALL_DOCS)]
+    small, small_ms = timed_call(lambda: IS.SparseIndex.build_bm25(corpus, device=dev))
+    qs = [" ".join(rng.choice(words[:150], 4)) for _ in range(64)]
+    out, ms, counts = launched(f"build_bm25 over {SMALL_DOCS} texts ({small_ms:.0f} ms; native "
+                               f"library {native.library_path().name} ready in "
+                               f"{build_ms:.0f} ms), q8 search of 64 queries",
+                               lambda: small.search(qs, k=10, p_cap=128, engine="q8"), (K3, K2))
+    cpu = IS.SparseIndex(small.offsets, small.docs, small.weights, small.doc_lens, small.docnos,
+                         small.vocab_dump, small.params, device="cpu")
+    if not equal_np(out, cpu.search(qs, k=10, p_cap=128, engine="q8")):
+        raise AssertionError("build_bm25 index: the card's q8 search differs from the CPU's")
+    res["launches"]["build_bm25"] = counts
+    res.update(ix=ix, qt=qt, qw=qw, p_exact=p_exact)
+    log(f"  ({smi})")
+    return res
+
+
+def index_cross_check(r):
+    """CROSS_Q queries of the index layer's "exact" and "q8" searches on CPU
+    copies of the index's arrays, bit for bit."""
+    from qpp_fusion_rag_tpu_torch.ops import sparse as S
+
+    ix, qt, qw = r["ix"], r["qt"][:CROSS_Q].cpu(), r["qw"][:CROSS_Q].cpu()
+    c = [x.cpu() for x in ix._device_arrays()[:3]]
+    want = S.sparse_score_topk(*c, qt, qw, k=TOP_K, p_cap=r["p_exact"])
+    s, i = r["index_exact"]
+    if not equal_np((s[:CROSS_Q], i[:CROSS_Q]), want):
+        raise AssertionError("SparseIndex.search exact: card and CPU disagree")
+    c = [x.cpu() for x in ix._device_packed(P_CAP)]
+    want = S.sparse_score_topk_q8(*c, qt, qw, k=TOP_K, p_cap=P_CAP, exact_topk=True,
+                                  presorted=True)
+    s, i = r["index_q8"]
+    if not equal_np((s[:CROSS_Q], i[:CROSS_Q]), want):
+        raise AssertionError("SparseIndex.search q8: card and CPU disagree")
+    log(f"  index layer: search exact and q8 of {CROSS_Q} queries equal on CPU copies")
+
+
 def main() -> None:
     if not (ROOT / "qpp_fusion_rag_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: no qpp_fusion_rag_tpu_torch package beside "
@@ -1027,7 +1340,7 @@ def main() -> None:
                          "this check runs only on an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
     from qpp_fusion_rag_tpu_torch.ops import sparse as S
-    from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES, _build, dense_topk
+    from qpp_fusion_rag_tpu_torch.ops.kernels import _build, dense_topk
     from qpp_fusion_rag_tpu_torch.pipeline.ensemble import dense_view_rescored
     from qpp_fusion_rag_tpu_torch.pipeline.interop import indexes_from_numpy
 
@@ -1137,21 +1450,23 @@ def main() -> None:
                                        sort_kernels, rounds=1, presorted=False,
                                        sparse_candidates=WINDOW_CANDIDATES)
 
+    t_ix = time.perf_counter()
+    log(f"[6g] sparse index layer: SparseIndex over the BM25 CSR and SpladeIndex over the "
+        f"SPLADE CSR ({N_DOCS} docs): search per engine, search_certified, search_impacts, "
+        f"BM25Retriever, TwoStageRetriever, autotune_sparse, build_bm25")
+    ix_res = index_layer(csr, batches, rows_bf16, idx, idx_sort, dev, smi)
+    phase_s["[6g] sparse index layer"] = time.perf_counter() - t_ix
+
     log(f"[7] q8r pool fallback: one BM25 sparse_score_topk_q8_rescored call at "
         f"{FALLBACK_CANDIDATES} candidates (bs 16384, 2*bs > M = {BM25_TQ * P_CAP})")
     bm25_rs = view_args(idx_rs, "bm25", ("packed", "offsets", "scales", "doc_packed",
                                          "doc_scale"))
     fb_kw = dict(k=TOP_K, p_cap=P_CAP, candidates=FALLBACK_CANDIDATES, imp_bits=imp_bits,
                  presorted=True)
-    LAUNCHES.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fb_s, fb_i = S.sparse_score_topk_q8_rescored(*bm25_rs, bt, bq, **fb_kw)
-    torch.cuda.synchronize()
-    fb_ms = (time.perf_counter() - t0) * 1e3
-    fb_launches = dict(LAUNCHES)
-    log(f"  {fb_ms:.1f} ms; launches: {fb_launches}")
-    if fb_launches.get("bitonic_sort_rows", 0) < 1 or fb_launches.get("bitonic_topp_rows", 0):
+    (fb_s, fb_i), fb_ms, fb_launches = launched(
+        "fallback call", lambda: S.sparse_score_topk_q8_rescored(*bm25_rs, bt, bq, **fb_kw),
+        ("bitonic_sort_rows",))
+    if fb_launches.get("bitonic_topp_rows", 0):
         raise AssertionError(f"the fallback call did not take the K5 pool: {fb_launches}")
 
     log(f"[7b] long rows: SPLADE queries of {LONG_TQ} terms, M = {LONG_TQ} x {P_CAP} = "
@@ -1169,17 +1484,8 @@ def main() -> None:
                 *splade_rs[:3], lt, lw, k=TOP_K, p_cap=P_CAP, presorted=True)),
             ("q8r", ("bitonic_segsum_rows", "bitonic_topp_rows", "rescore_match"),
              lambda: S.sparse_score_topk_q8_rescored(*splade_rs, lt, lw, **rs_kw))):
-        LAUNCHES.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        long_out[mode] = call()
-        torch.cuda.synchronize()
-        long_ms[mode] = (time.perf_counter() - t0) * 1e3
-        long_launches[mode] = dict(LAUNCHES)
-        log(f"  {mode}: {long_ms[mode]:.1f} ms; launches {long_launches[mode]}")
-        missing = [k for k in expect if long_launches[mode].get(k, 0) < 1]
-        if missing:
-            raise AssertionError(f"the long-row {mode} call never launched {missing}")
+        long_out[mode], long_ms[mode], long_launches[mode] = launched(
+            f"long-row {mode} call", call, expect)
         if int((long_out[mode][1] >= 0).sum()) == 0:
             raise AssertionError(f"the long-row {mode} call found no documents")
     packed, offsets, scales = view_args(idx_rs, "splade")
@@ -1237,6 +1543,8 @@ def main() -> None:
             assert_close_ranking(g_s[:CROSS_Q].cpu(), g_i[:CROSS_Q].cpu(), c_s, c_i,
                                  f"splade q8r at Tq {LONG_TQ}")
         del c
+    index_cross_check(ix_res)
+    del ix_res["ix"]
     c_rows, c_scale = idx_rs.corpus_rows.cpu(), idx_rs.d_scale.cpu()
     g_s, g_i = dense_topk.pallas_dense_topk_int8(q_emb, idx_rs.corpus_rows, idx_rs.d_scale, k=TOP_K)
     c_s, c_i = dense_topk.pallas_dense_topk_int8(q_emb[:CROSS_Q].cpu(), c_rows, c_scale, k=TOP_K)
@@ -1363,7 +1671,7 @@ def main() -> None:
     paths = {"q8": q8_launches, "q8r": q8r_launches, "q8c": q8c_launches,
              "sort": sort_launches, "window_rescore": win_launches, "q8r_fallback": fb_launches,
              "splade_q8_tq32": long_launches["q8"], "splade_q8r_tq32": long_launches["q8r"],
-             **flag_launches, **entry}
+             **flag_launches, **entry, **ix_res["launches"]}
     kernels = []
     for name, (source, replaces, main_path) in meta.items():
         ptxas = {k: v for k, v in kernel_ptxas.items() if source.endswith(v["source"])}
@@ -1380,6 +1688,9 @@ def main() -> None:
         f"q8c certified_frac {certified_frac}; window-rescore step {win_ms[0]:.1f} ms; "
         f"fallback call {fb_ms:.1f} ms; SPLADE Tq {LONG_TQ} calls ms {long_ms}; host build "
         f"{host_s:.1f} s; kernel build {build_s:.1f} s; {smi}")
+    log(f"  index layer ({smi}): call ms {ix_res['ms']}; lazy device arrays s "
+        f"{ix_res['lazy_s']}; search_certified {ix_res['certified']}; autotune_sparse "
+        f"{ix_res['autotune']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}),

@@ -4,7 +4,8 @@ normalization.
 Counterpart of qpp_fusion_rag_tpu/retrievers/base.py (the reference's
 retrieve(query, qid, top_k) -> RetrieverResult surface, results as
 [(docno, score, rank)], per-query latency, TREC lines and the static
-min-max of the .norm.res contract). Plain Python: no tensor code.
+min-max of the .norm.res contract, and the TREC run writer). Plain Python:
+no tensor code.
 """
 
 from __future__ import annotations
@@ -80,3 +81,15 @@ class BaseRetriever(ABC):
                 out[qid] = RetrieverResult(qid, rows_to_results(scores[bi], rows[bi], docno_of),
                                            latency_ms=per_query)
         return out
+
+
+def write_results_trec(results: Dict[str, RetrieverResult], path, tag: str,
+                       normalize: bool = False) -> None:
+    """Write a result dict as a TREC run file (rank-ordered)."""
+    from qpp_fusion_rag_tpu_torch.data.loaders import write_run_file
+
+    run = {}
+    for qid, res in results.items():
+        entries = normalize_scores(res.results) if normalize else res.results
+        run[qid] = [(d, s) for d, s, _r in entries]
+    write_run_file(run, path, tag=tag)

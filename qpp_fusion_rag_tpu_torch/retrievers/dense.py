@@ -6,7 +6,7 @@ layout is the same (embeddings.npy [N, D] + docnos.txt), so one saved index
 serves both packages. The settings JAX reads from its YAML config are
 constructor defaults here: corpus_dtype bfloat16, chunk_docs 131072,
 batch_size 1024. Multi-GPU search (JAX's `mesh`) is not ported yet
-(ROADMAP Queue 1 item 12): `mesh` must be None.
+(ROADMAP Queue 1 item 7): `mesh` must be None.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ ENGINES = ("stream", "int8", "int8r")
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise ValueError("multi-device search is not ported yet (ROADMAP Queue 1 "
-                         "item 12); pass mesh=None")
+                         "item 7); pass mesh=None")
 
 
 class DenseIndex:

@@ -5,7 +5,8 @@ the port and agree with JAX: bit for bit on integer paths, pools and the
 dense kernels' integer-valued inputs, within rtol 4e-6 on the rescore's f32
 sums. The ensemble step's sparse_mode defaults to JAX's "sort", and refuses
 the presorted layout as JAX does. The dense kernel entry points take JAX's
-n_real = 0 as "every doc is real"."""
+n_real = 0 as "every doc is real". The index layer and the retrievers take
+JAX's parameters and at most a `device` after them."""
 
 import inspect
 
@@ -14,19 +15,40 @@ import numpy as np
 import pytest
 import torch
 
+from qpp_fusion_rag_tpu import retrievers as JRG
+from qpp_fusion_rag_tpu.data import loaders as JL
 from qpp_fusion_rag_tpu.data.synthetic import zipf_bm25_csr, zipf_queries
+from qpp_fusion_rag_tpu.encoders import heads as JH
+from qpp_fusion_rag_tpu.index import autotune as JA
+from qpp_fusion_rag_tpu.index import engines as JEN
+from qpp_fusion_rag_tpu.index import native as JN
+from qpp_fusion_rag_tpu.index import sparse as JIX
 from qpp_fusion_rag_tpu.ops import dense as JD
 from qpp_fusion_rag_tpu.ops import sparse as JSP
 from qpp_fusion_rag_tpu.ops.pallas import dense_topk as JK
 from qpp_fusion_rag_tpu.ops.pallas import streaming_topk as JS
 from qpp_fusion_rag_tpu.pipeline import ensemble as JE
+from qpp_fusion_rag_tpu.retrievers import base as JBASE
+from qpp_fusion_rag_tpu.retrievers import bm25 as JBM
 from qpp_fusion_rag_tpu.retrievers import dense as JR
+from qpp_fusion_rag_tpu.retrievers import splade as JSPL
+from qpp_fusion_rag_tpu.retrievers import two_stage as JTS
+from qpp_fusion_rag_tpu_torch import retrievers as TRG
+from qpp_fusion_rag_tpu_torch.data import loaders as TL
+from qpp_fusion_rag_tpu_torch.index import autotune as TA
+from qpp_fusion_rag_tpu_torch.index import engines as TEN
+from qpp_fusion_rag_tpu_torch.index import native as TN
+from qpp_fusion_rag_tpu_torch.index import sparse as TIX
 from qpp_fusion_rag_tpu_torch.ops import dense as TD
 from qpp_fusion_rag_tpu_torch.ops import sparse as TSP
 from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk as TK
 from qpp_fusion_rag_tpu_torch.ops.kernels import streaming_topk as TS
 from qpp_fusion_rag_tpu_torch.pipeline import ensemble as TE
+from qpp_fusion_rag_tpu_torch.retrievers import base as TBASE
+from qpp_fusion_rag_tpu_torch.retrievers import bm25 as TBM
 from qpp_fusion_rag_tpu_torch.retrievers import dense as TR
+from qpp_fusion_rag_tpu_torch.retrievers import splade as TSPL
+from qpp_fusion_rag_tpu_torch.retrievers import two_stage as TTS
 
 
 # The one parameter the port names otherwise: its int8 entry points take the
@@ -361,3 +383,92 @@ def test_ensemble_step_defaults_to_jax_sort_mode_which_raises(sparse_index):
     with pytest.raises(ValueError, match="presorted layout needs"):
         TE.ensemble_retrieval_step(idx, *inputs, k=10, k_out=10, p_cap=CAP,
                                    sparse_presorted=True)
+
+
+# ------------------------------------------ index layer and retrievers ------
+
+INDEX_LAYER = [
+    (JN.NativeIndexBuilder.__init__, TN.NativeIndexBuilder.__init__),
+    (JN.NativeIndexBuilder.add_doc, TN.NativeIndexBuilder.add_doc),
+    (JN.NativeIndexBuilder.add_docs, TN.NativeIndexBuilder.add_docs),
+    (JN.NativeIndexBuilder.finalize, TN.NativeIndexBuilder.finalize),
+    (JN.NativeIndexBuilder.export, TN.NativeIndexBuilder.export),
+    (JN.NativeIndexBuilder.vocab_dump, TN.NativeIndexBuilder.vocab_dump),
+    (JN.NativeIndexBuilder.vocab_load, TN.NativeIndexBuilder.vocab_load),
+    (JN.NativeIndexBuilder.query_terms, TN.NativeIndexBuilder.query_terms),
+    (JN.NativeIndexBuilder.close, TN.NativeIndexBuilder.close),
+    (JEN.PackedEngineMixin._device_packed, TEN.PackedEngineMixin._device_packed),
+    (JEN.PackedEngineMixin._device_doc_vectors, TEN.PackedEngineMixin._device_doc_vectors),
+    (JEN.PackedEngineMixin._device_doc_vectors_exact,
+     TEN.PackedEngineMixin._device_doc_vectors_exact),
+    (JEN.PackedEngineMixin._engine_topk, TEN.PackedEngineMixin._engine_topk),
+    (JIX.SparseIndex.__init__, TIX.SparseIndex.__init__),
+    (JIX.SparseIndex.build_bm25, TIX.SparseIndex.build_bm25),
+    (JIX.SparseIndex.quantize, TIX.SparseIndex.quantize),
+    (JIX.SparseIndex.save, TIX.SparseIndex.save),
+    (JIX.SparseIndex.load, TIX.SparseIndex.load),
+    (JIX.SparseIndex.encode_queries, TIX.SparseIndex.encode_queries),
+    (JIX.SparseIndex.search, TIX.SparseIndex.search),
+    (JIX.SparseIndex.search_certified, TIX.SparseIndex.search_certified),
+    (JIX.SparseIndex.docno, TIX.SparseIndex.docno),
+    (JIX.SparseIndex.export_doc_vectors, TIX.SparseIndex.export_doc_vectors),
+    (JA.autotune_sparse, TA.autotune_sparse),
+    (JA.autotune_dense, TA.autotune_dense),
+    (JA._recall_at_k, TA._recall_at_k),
+    (JL.doc_text, TL.doc_text),
+    (JL.qid_sort_key, TL.qid_sort_key),
+    (JL.write_run_file, TL.write_run_file),
+    (JBASE.write_results_trec, TBASE.write_results_trec),
+    (JRG.get_retriever, TRG.get_retriever),
+    (JBM.BM25Retriever.__init__, TBM.BM25Retriever.__init__),
+    (JBM.BM25Retriever.from_corpus, TBM.BM25Retriever.from_corpus),
+    (JBM.BM25Retriever.from_index_dir, TBM.BM25Retriever.from_index_dir),
+    (JBM.BM25Retriever.from_terrier, TBM.BM25Retriever.from_terrier),
+    (JBM.BM25Retriever.retrieve, TBM.BM25Retriever.retrieve),
+    (JBM.BM25Retriever.retrieve_batch, TBM.BM25Retriever.retrieve_batch),
+    (JH.pad_sequences, TSPL.pad_sequences),
+    (JSPL.SpladeIndex.__init__, TSPL.SpladeIndex.__init__),
+    (JSPL.SpladeIndex.from_impacts, TSPL.SpladeIndex.from_impacts),
+    (JSPL.SpladeIndex.save, TSPL.SpladeIndex.save),
+    (JSPL.SpladeIndex.load, TSPL.SpladeIndex.load),
+    (JSPL.SpladeIndex.search_impacts, TSPL.SpladeIndex.search_impacts),
+    (JSPL.SpladeRetriever.__init__, TSPL.SpladeRetriever.__init__),
+    (JSPL.SpladeRetriever.build, TSPL.SpladeRetriever.build),
+    (JSPL.SpladeRetriever.retrieve, TSPL.SpladeRetriever.retrieve),
+    (JSPL.SpladeRetriever.retrieve_batch, TSPL.SpladeRetriever.retrieve_batch),
+    (JTS.DenseReranker.__init__, TTS.DenseReranker.__init__),
+    (JTS.DenseReranker.score, TTS.DenseReranker.score),
+    (JTS.CrossEncoderReranker.__init__, TTS.CrossEncoderReranker.__init__),
+    (JTS.CrossEncoderReranker.score, TTS.CrossEncoderReranker.score),
+    (JTS.TwoStageRetriever.__init__, TTS.TwoStageRetriever.__init__),
+    (JTS.TwoStageRetriever.retrieve, TTS.TwoStageRetriever.retrieve),
+    (JTS.TwoStageRetriever.retrieve_batch, TTS.TwoStageRetriever.retrieve_batch),
+]
+
+
+@pytest.mark.parametrize("jax_fn,port_fn", INDEX_LAYER,
+                         ids=lambda f: getattr(f, "__qualname__", None))
+def test_index_layer_takes_jax_parameters_plus_device(jax_fn, port_fn):
+    """JAX's parameters in JAX's order with JAX's defaults; the port adds
+    at most `device` (default None: the card), after them."""
+    j, t = _names(jax_fn), _names(port_fn)
+    assert t in (j, j + ["device"])
+    jp, tp = inspect.signature(jax_fn).parameters, inspect.signature(port_fn).parameters
+    for name in jp:
+        assert tp[name].kind == jp[name].kind, name
+        if jp[name].default is not inspect.Parameter.empty:
+            assert tp[name].default == jp[name].default, name
+    if t != j:
+        assert tp["device"].default is None
+
+
+def test_index_layer_registry_and_exports_match_jax():
+    import qpp_fusion_rag_tpu.index as JI
+    import qpp_fusion_rag_tpu_torch.index as TI
+
+    assert TI.__all__ == JI.__all__
+    assert TRG.__all__ == JRG.__all__
+    assert list(TRG.RETRIEVER_REGISTRY) == list(JRG.RETRIEVER_REGISTRY)
+    for cls in ("TunedConfig", "TunedDenseConfig"):
+        assert [f.name for f in __import__("dataclasses").fields(getattr(TA, cls))] == \
+            [f.name for f in __import__("dataclasses").fields(getattr(JA, cls))]
