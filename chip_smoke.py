@@ -50,7 +50,16 @@ kernels). Each path checks that every kernel it runs launched, with the
 counts set to 0 just before it. Last, the kernel-bearing views (the q8c
 certificates and the f32 route too) and the flagship's runs and fused
 outputs, and the index layer's "exact" and "q8" searches, are
-cross-checked against the plain versions on CPU copies. Every
+cross-checked against the plain versions on CPU copies. Then phase [13]
+trains: 4 learned_fusion_train_step calls at full width (the flagship's
+5 views x 1024 queries over the bf16 corpus, chunk 8192; no kernel, as in
+JAX), the same step on the card and on a CPU copy of the first 131,072
+docs and 64 queries from the same parameters and Adam state, the trained
+weights served by learned_fused_retrieval_step through K7, and
+FusionMLP.train and PerRetrieverGBDT.fit with the config defaults on the
+int8 route's raw QPP features of the three batches (80/20 split, seeded
+soft targets), their card predictions held to CPU copies and to the host
+traversal. Every
 phase raises on failure and prints its seconds. The line before the last
 is a JSON summary of the ten kernels; the last line is
 
@@ -103,6 +112,11 @@ VIEWS = ("bm25", "splade")
 DEVICE = "cuda"
 LONG_TQ = 32                      # a SPLADE query of 32 terms: M = 32 x 2048 = 65,536 keys
 WIDE_DIM, WIDE_DOCS = 1024, 131_072   # K8 / K10 at the large BGE / e5 encoders' width
+TRAIN_STEPS = 4                   # learned_fusion_train_step calls over the three batches
+TRAIN_CHUNK = 8192                # JAX's default chunk of the training step
+TRAIN_CUT_DOCS, TRAIN_CUT_Q = 131_072, 64   # the card-vs-CPU step check's cut
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-6   # f32 matmuls and sums in the card's order
+PREDICT_RTOL, PREDICT_ATOL = 1e-5, 1e-6
 HBM_BPS = 3.35e12                 # H100 SXM device memory, bytes/s
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}   # H100 SXM dense tensor-core peaks
 
@@ -1331,6 +1345,163 @@ def index_cross_check(r):
     log(f"  index layer: search exact and q8 of {CROSS_Q} queries equal on CPU copies")
 
 
+def train_targets(feats_rsd, seed):
+    """Seeded soft targets [n, R] that depend on the RSD feature of each
+    view (standardized, plus unit noise), so the models have something to
+    learn: softmax over the views."""
+    rng = np.random.default_rng(seed)
+    z = (feats_rsd - feats_rsd.mean(0)) / np.maximum(feats_rsd.std(0), 1e-6)
+    logits = z + rng.standard_normal(z.shape)
+    y = np.exp(logits - logits.max(1, keepdims=True))
+    return (y / y.sum(1, keepdims=True)).astype(np.float32)
+
+
+def params_close(g, c, what):
+    for i, (lg, lc) in enumerate(zip(g, c)):
+        for name in ("w", "b"):
+            torch.testing.assert_close(lg[name].detach().cpu(), lc[name].detach(),
+                                       rtol=TRAIN_RTOL, atol=TRAIN_ATOL,
+                                       msg=lambda m: f"{what}, layer {i} {name}: {m}")
+
+
+def training_and_models(rows_bf16, rows_i8, d_scale, fbatches, view_proj, smi, dev):
+    """Phase [13]: the learned-fusion training step at full width, the same
+    step against a CPU copy on a cut corpus, serving the trained weights
+    through K7, FusionMLP.train and PerRetrieverGBDT.fit with the config
+    defaults on the int8 route's raw QPP features. -> summary dict."""
+    import copy
+
+    from qpp_fusion_rag_tpu_torch.models import FusionMLP, PerRetrieverGBDT
+    from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
+    from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk as DK
+    from qpp_fusion_rag_tpu_torch.pipeline import engine as E
+
+    out = {}
+    log(f"[13a] learned_fusion_train_step at full width: {TRAIN_STEPS} steps over the "
+        f"{len(fbatches)} flagship batches ({BATCH} queries, {VIEWS_R} views, "
+        f"{tuple(rows_bf16.shape)} bf16 corpus, k {TOP_K}, chunk {TRAIN_CHUNK})")
+    state, opt = E.make_train_state(torch.Generator(device=dev).manual_seed(13), VIEWS_R,
+                                    VIEWS_R * 13)
+    p0 = [{k: v.detach().clone() for k, v in layer.items()} for layer in state.params]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    targets = torch.rand((BATCH, VIEWS_R), generator=gen, device=dev) + 0.05
+    targets = targets / targets.sum(1, keepdim=True)
+    LAUNCHES.clear()
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        q_emb, tf = fbatches[i % len(fbatches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = E.learned_fusion_train_step(state, opt, q_emb, targets, view_proj,
+                                                  rows_bf16, tf, k=TOP_K, chunk=TRAIN_CHUNK)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if LAUNCHES:
+        raise AssertionError(f"the training step launched kernels: {dict(LAUNCHES)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training losses {losses}")
+    moved = min(float((a[k].detach() - b[k]).abs().max()) for a, b in zip(state.params, p0)
+                for k in ("w", "b"))
+    if moved == 0:
+        raise AssertionError("a parameter tensor did not move in training")
+    med = statistics.median(step_ms[1:])
+    log(f"  losses {losses}; every parameter tensor moved (least max change {moved:.3g}); "
+        "no kernel launched (the plain route, as JAX's step)")
+    log(f"  step ms: first {step_ms[0]:.3f}, median of the other {TRAIN_STEPS - 1} "
+        f"{med:.3f} (all {[round(x, 3) for x in step_ms]}) ({smi})")
+    out["train_step_ms"] = {"first": step_ms[0], "median": med, "all": step_ms}
+
+    log(f"[13a'] the training step on the card and on a CPU copy: the first "
+        f"{TRAIN_CUT_DOCS} docs, {TRAIN_CUT_Q} queries, the parameters and Adam state "
+        "after [13a]")
+    cut = rows_bf16[:TRAIN_CUT_DOCS]
+    q_emb, tf = fbatches[0]
+    runs = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = [{k: v.detach().to(d).clone().requires_grad_(True) for k, v in layer.items()}
+                  for layer in state.params]
+        o = torch.optim.Adam([p for layer in params for p in layer.values()], lr=1e-3,
+                             betas=(0.9, 0.999), eps=1e-8)
+        o.load_state_dict(copy.deepcopy(opt.state_dict()))   # steps update it in place
+        st, loss = E.learned_fusion_train_step(
+            E.TrainState(params, o.state), o, q_emb[:TRAIN_CUT_Q].to(d),
+            targets[:TRAIN_CUT_Q].to(d), view_proj.to(d), cut.to(d), tf[:TRAIN_CUT_Q].to(d),
+            k=TOP_K, chunk=TRAIN_CHUNK)
+        runs[where] = (float(loss), st.params)
+    (gl, gp), (cl, cp) = runs["card"], runs["cpu"]
+    if abs(gl - cl) > TRAIN_RTOL * abs(cl):
+        raise AssertionError(f"training step loss: card {gl} vs CPU {cl}")
+    params_close(gp, cp, "training step parameters")
+    err = max(float((a[k].detach().cpu() - b[k].detach()).abs().max())
+              for a, b in zip(gp, cp) for k in ("w", "b"))
+    log(f"  loss card {gl} vs CPU {cl}; parameters within rtol {TRAIN_RTOL}, atol "
+        f"{TRAIN_ATOL} (max abs diff {err:.3g})")
+    out["train_step_check"] = {"loss_card": gl, "loss_cpu": cl, "max_param_diff": err}
+
+    log("[13b] serving the trained weights: learned_fused_retrieval_step on the K7 route "
+        "(use_pallas=True, bf16 rows), one batch")
+    trained = [{k: v.detach() for k, v in layer.items()} for layer in state.params]
+    launches, ms, _ = run_flagship(
+        "learned_trained", lambda *a, **kw: E.learned_fused_retrieval_step(trained, *a, **kw),
+        rows_bf16, fbatches[:1], view_proj, smi, ("group_max_packed",), rounds=1,
+        use_pallas=True)
+    out["serve_trained"] = {"launches": launches, "ms": ms[0]}
+
+    feats = []
+    for q_emb, tf in fbatches:
+        vals, ids = DK.pallas_multi_view_topk_int8(q_emb, view_proj, rows_i8, d_scale, k=TOP_K)
+        qpp = E.qpp_from_runs(vals, ids, tf, normalize=False)
+        feats.append(qpp.permute(1, 0, 2).reshape(BATCH, VIEWS_R * 13))
+    X = torch.cat(feats).cpu().numpy()
+    if not np.isfinite(X).all():
+        raise AssertionError("non-finite raw QPP features")
+    Y = train_targets(X[:, 5::13], seed=15)
+    n_tr = int(0.8 * len(X))
+    split = (X[:n_tr], Y[:n_tr], X[n_tr:], Y[n_tr:])
+    names = [f"view{i}" for i in range(VIEWS_R)]
+
+    log(f"[13c] FusionMLP.train with the config defaults on the int8 route's raw QPP "
+        f"features {X.shape} (train {n_tr}, validation {len(X) - n_tr})")
+    mlp = FusionMLP(names)
+    t0 = time.perf_counter()
+    info = mlp.train(*split)
+    fit_s = time.perf_counter() - t0
+    log(f"  hidden {mlp.hidden_sizes}, qpp_indices {mlp.qpp_indices}, dropout {mlp.dropout}, "
+        f"batch {mlp.batch_size}, patience {mlp.patience}: {fit_s:.3f} s, epochs_run "
+        f"{info['epochs_run']}, best_loss {info['best_loss']} ({smi})")
+    cpu_mlp = copy.copy(mlp)
+    cpu_mlp.device = "cpu"
+    g, c = mlp.predict(X), cpu_mlp.predict(X)
+    np.testing.assert_allclose(g, c, rtol=PREDICT_RTOL, atol=0,
+                               err_msg="FusionMLP.predict: card vs CPU")
+    log(f"  predict on the card equals a CPU copy within rtol {PREDICT_RTOL} "
+        f"(max abs diff {float(np.abs(g - c).max()):.3g})")
+    out["fusion_mlp"] = {"fit_s": fit_s, "epochs_run": info["epochs_run"],
+                         "best_loss": info["best_loss"]}
+
+    log("[13d] PerRetrieverGBDT.fit with the config defaults on the same split (host numpy)")
+    gbdt = PerRetrieverGBDT(names)
+    t0 = time.perf_counter()
+    ginfo = gbdt.train(*split)
+    gfit_s = time.perf_counter() - t0
+    for b in gbdt.boosters:
+        b.ensemble()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_pred = np.stack([b.predict(X) for b in gbdt.boosters], 1)
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    host_pred = np.stack([b.predict(X, device=False) for b in gbdt.boosters], 1)
+    np.testing.assert_allclose(dev_pred, host_pred, rtol=PREDICT_RTOL, atol=PREDICT_ATOL,
+                               err_msg="GBDT predict: card traversal vs host loop")
+    n_trees = {k: v["n_trees"] for k, v in ginfo.items()}
+    log(f"  fit {gfit_s:.3f} s, trees per view {n_trees}; predict of {len(X)} rows on the "
+        f"card (ops/trees traversal, {len(gbdt.boosters)} boosters) {pred_ms:.3f} ms, equal to "
+        f"the host loop within rtol {PREDICT_RTOL}, atol {PREDICT_ATOL} (max abs diff "
+        f"{float(np.abs(dev_pred - host_pred).max()):.3g}) ({smi})")
+    out["gbdt"] = {"fit_s": gfit_s, "n_trees": n_trees, "predict_ms": pred_ms}
+    return out
+
+
 def main() -> None:
     if not (ROOT / "qpp_fusion_rag_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: no qpp_fusion_rag_tpu_torch package beside "
@@ -1651,6 +1822,12 @@ def main() -> None:
     log("  cross-check ok")
     phase_s["[12] flagship cross-check"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    log("[13] training and the fusion models")
+    train_res = training_and_models(rows_bf16, idx.corpus_rows, idx.d_scale, fbatches,
+                                    view_proj, smi, dev)
+    phase_s["[13] training and the fusion models"] = time.perf_counter() - t0
+
     src = "qpp_fusion_rag_tpu_torch/csrc/"
     tpu = "qpp_fusion_rag_tpu/ops/pallas/"
     # kernel -> (source, TPU kernel it replaces, its main path)
@@ -1671,7 +1848,8 @@ def main() -> None:
     paths = {"q8": q8_launches, "q8r": q8r_launches, "q8c": q8c_launches,
              "sort": sort_launches, "window_rescore": win_launches, "q8r_fallback": fb_launches,
              "splade_q8_tq32": long_launches["q8"], "splade_q8r_tq32": long_launches["q8r"],
-             **flag_launches, **entry, **ix_res["launches"]}
+             **flag_launches, "learned_trained": train_res["serve_trained"]["launches"],
+             **entry, **ix_res["launches"]}
     kernels = []
     for name, (source, replaces, main_path) in meta.items():
         ptxas = {k: v for k, v in kernel_ptxas.items() if source.endswith(v["source"])}
@@ -1691,6 +1869,7 @@ def main() -> None:
     log(f"  index layer ({smi}): call ms {ix_res['ms']}; lazy device arrays s "
         f"{ix_res['lazy_s']}; search_certified {ix_res['certified']}; autotune_sparse "
         f"{ix_res['autotune']}")
+    log(f"  training and the fusion models ({smi}): {json.dumps(train_res)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}),

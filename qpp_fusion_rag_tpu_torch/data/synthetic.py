@@ -1,8 +1,9 @@
 """Synthetic Zipfian impact indexes and queries (numpy, host side).
 
 Counterpart of qpp_fusion_rag_tpu/data/synthetic.py (zipf_bm25_csr,
-zipf_queries and the calibrated shape constants), with the same RNG calls
-in the same order, so a seed gives array-equal output in both packages.
+zipf_queries, exact_sparse_scores_host and the calibrated shape constants),
+with the same RNG calls in the same order, so a seed gives array-equal
+output in both packages.
 """
 
 from __future__ import annotations
@@ -96,3 +97,39 @@ def zipf_queries(
     p /= p.sum()
     q_terms = rng.choice(candidates, size=(n_queries, n_terms), p=p).astype(np.int32)
     return q_terms, np.ones((n_queries, n_terms), dtype=np.float32)
+
+
+def exact_sparse_scores_host(
+    offsets: np.ndarray,
+    docs: np.ndarray,
+    weights: np.ndarray,
+    q_terms: np.ndarray,
+    q_weights: np.ndarray,
+    n_docs: int,
+    k: int = 100,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact full-depth sparse scores on the host in float64: the truth for
+    p_cap truncation sweeps. Terms < 0 are padding; docs scoring <= 0 get
+    id -1. -> (scores f32 [B, k], ids int32 [B, k])."""
+    B = q_terms.shape[0]
+    out_s = np.zeros((B, k), dtype=np.float32)
+    out_i = np.full((B, k), -1, dtype=np.int32)
+    for i in range(B):
+        segs_d, segs_w = [], []
+        for t, qw in zip(q_terms[i], q_weights[i]):
+            if t < 0:
+                continue
+            lo, hi = int(offsets[t]), int(offsets[t + 1])
+            segs_d.append(docs[lo:hi])
+            segs_w.append(weights[lo:hi].astype(np.float64) * qw)
+        if not segs_d:
+            continue
+        acc = np.bincount(np.concatenate(segs_d), weights=np.concatenate(segs_w),
+                          minlength=n_docs)
+        kk = min(k, n_docs)
+        top = np.argpartition(-acc, kk - 1)[:kk]
+        top = top[np.argsort(-acc[top], kind="stable")]
+        out_s[i, :kk] = acc[top]
+        out_i[i, :kk] = top
+        out_i[i, :kk][acc[top] <= 0] = -1
+    return out_s, out_i

@@ -1,7 +1,7 @@
 """Rank fusion as one segmented aggregation over padded run tensors.
 
 Counterpart of qpp_fusion_rag_tpu/ops/fusion.py (_row_minmax,
-fuse_kernel and the method codes). Inputs:
+fuse_kernel, the string-dispatch fuse and the method codes). Inputs:
 
     ids     : int32   [R, Q, K]  doc ids (PAD = -1), rank-ordered
     scores  : float32 [R, Q, K]  scores (-inf padding)
@@ -14,6 +14,8 @@ axis is a batch dimension.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -51,3 +53,29 @@ def fuse_kernel(ids: torch.Tensor, scores: torch.Tensor, weights: torch.Tensor,
     top_ids, top_vals, _ = segmented_topk(flat_ids, flat_vals, min(k_out, R * K),
                                           count_bonus=(method == COMBMNZ))
     return top_ids, top_vals
+
+
+def fuse(ids, scores, weights=None, method: str = "combsum", rrf_k: float = 60.0,
+         minmax_norm: Optional[bool] = None, k_out: int = 100, device=None):
+    """String-dispatch wrapper over fuse_kernel. weights=None fuses
+    unweighted (all 1) and then min-max normalizes sum / mnz rows by
+    default (ranx fuse()'s default); given weights, rows are taken as
+    already normalized (.norm.res scores). rrf ignores minmax_norm. Inputs
+    are tensors or numpy arrays; they go to `device`, by default the device
+    of `ids` when it is a tensor, else the card."""
+    code = {"combsum": COMBSUM, "sum": COMBSUM, "combmnz": COMBMNZ, "mnz": COMBMNZ,
+            "rrf": RRF}[method.lower()]
+    if device is None:
+        device = ids.device if isinstance(ids, torch.Tensor) else "cuda"
+    ids = torch.as_tensor(ids, device=device)
+    scores = torch.as_tensor(scores, device=device)
+    if weights is None:
+        weights = torch.ones(ids.shape[:2], dtype=torch.float32, device=device)
+        if minmax_norm is None:
+            minmax_norm = True
+    else:
+        weights = torch.as_tensor(weights, device=device).to(torch.float32)
+        if minmax_norm is None:
+            minmax_norm = False
+    return fuse_kernel(ids, scores, weights, method=code, rrf_k=float(rrf_k),
+                       minmax_norm=bool(minmax_norm), k_out=int(k_out))

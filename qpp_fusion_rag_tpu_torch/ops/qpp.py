@@ -1,8 +1,9 @@
 """The 13 QPP statistics as one batched reduction: scores [..., K] -> [..., 13].
 
-Counterpart of qpp_fusion_rag_tpu/ops/qpp.py (qpp_kernel and the min-max
-normalization helpers). The JAX kernel takes [Q, K] and is vmapped over
-retrievers; this one takes any leading dims. Column order:
+Counterpart of qpp_fusion_rag_tpu/ops/qpp.py (the host's query-text
+features, qpp_kernel and the normalization helpers). The JAX kernel takes
+[Q, K] and is vmapped over retrievers; this one takes any leading dims.
+Column order:
 [nqc, smv, wig, SigmaMax, SigmaX, RSD, UEF, MaxIDF, avgidf, cumnqc, snqc,
  dense-qpp, dense-qpp-m].
 """
@@ -10,8 +11,9 @@ retrievers; this one takes any leading dims. Column order:
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from qpp_fusion_rag_tpu_torch.ops.segment import cumsum_blocked
@@ -23,6 +25,23 @@ METHOD_NAMES: List[str] = [
     "nqc", "smv", "wig", "SigmaMax", "SigmaX", "RSD", "UEF",
     "MaxIDF", "avgidf", "cumnqc", "snqc", "dense-qpp", "dense-qpp-m",
 ]
+
+
+def text_features(query_text: str) -> Tuple[float, float, float, float]:
+    """(num_terms, num_unique, max_term_len, avg_term_len) of a query, split
+    as Java's ``text.toLowerCase().split("\\\\s+")``: an empty string is
+    one empty term (num_terms 1, max_len 0, avg_len 0)."""
+    terms = query_text.lower().split()
+    if not terms:
+        terms = [""]
+    unique = set(terms)
+    return (float(len(terms)), float(len(unique)), float(max(len(t) for t in unique)),
+            float(sum(len(t) for t in terms) / len(terms)))
+
+
+def text_features_batch(query_texts: Sequence[str]) -> np.ndarray:
+    """-> the [B, 4] f32 host array every step takes as text_feats."""
+    return np.array([text_features(t) for t in query_texts], dtype=np.float32)
 
 
 def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
@@ -140,6 +159,21 @@ def qpp_kernel(scores: torch.Tensor, n_valid: torch.Tensor,
             cumnqc, snqc, dense, dense]
     out = torch.stack(torch.broadcast_tensors(*cols), dim=-1)
     return torch.where((m > 0)[..., None], out, 0.0)
+
+
+def normalize_qpp(qpp: torch.Tensor, method: str = "minmax") -> torch.Tensor:
+    """Normalize each column of [Q, M] across queries. minmax:
+    (v - min) / (max - min), range 1 where degenerate; zscore:
+    (v - mean) / std (population std, 1 where 0); anything else: as is."""
+    if method == "minmax":
+        vmin = qpp.amin(dim=0, keepdim=True)
+        vmax = qpp.amax(dim=0, keepdim=True)
+        return (qpp - vmin) / torch.where(vmax > vmin, vmax - vmin, 1.0)
+    if method == "zscore":
+        mean = qpp.mean(dim=0, keepdim=True)
+        std = qpp.std(dim=0, keepdim=True, correction=0)
+        return (qpp - mean) / torch.where(std > 0, std, 1.0)
+    return qpp
 
 
 def minmax_extrema(qpp: torch.Tensor):

@@ -50,6 +50,21 @@ def _run_last(sids: torch.Tensor) -> torch.Tensor:
     return torch.cat([sids[..., 1:] != sids[..., :-1], tail], dim=-1)
 
 
+def segmented_sums_presorted(sids: torch.Tensor, svals: torch.Tensor) -> torch.Tensor:
+    """Per-run f32 sums at each run's LAST position, -inf elsewhere and on
+    SENTINEL ids. sids ascending along the last axis, svals >= 0 (no
+    negativity shift); the sums are differences of one blocked cumsum of the
+    row, so integer-valued inputs stay exact while the row total < 2^24."""
+    svalid = sids != SENTINEL
+    last = _run_last(sids)
+    c = cumsum_blocked(torch.where(svalid, svals, 0.0))
+    marked = torch.where(last, c, float("-inf"))
+    shifted = torch.cat([torch.full_like(c[..., :1], float("-inf")), marked[..., :-1]], dim=-1)
+    prev = torch.cummax(shifted, dim=-1).values
+    sums = c - torch.where(torch.isneginf(prev), 0.0, prev)
+    return torch.where(last & svalid, sums, float("-inf"))
+
+
 def segmented_sums_presorted_i32(sids: torch.Tensor,
                                  ivals: torch.Tensor) -> torch.Tensor:
     """Per-run int32 sums at each run's LAST position, -1 elsewhere and on
@@ -91,10 +106,11 @@ def run_totals_presorted(sids: torch.Tensor, svals: torch.Tensor):
 
 
 def segmented_topk_presorted(sids: torch.Tensor, svals: torch.Tensor, k: int,
-                             count_bonus: bool = False):
+                             count_bonus: bool = False, exact_topk: bool = True):
     """Run sums of f32 contributions over ascending ids, then the exact
     top-k runs. -> (ids [..., k] (-1 pad), sums [..., k] (-inf pad),
-    counts [..., k] (0 pad)); count_bonus scores sum * count (CombMNZ)."""
+    counts [..., k] (0 pad)); count_bonus scores sum * count (CombMNZ).
+    exact_topk has no effect: the selection is exact either way."""
     M = sids.shape[-1]
     sums, counts, at_last = run_totals_presorted(sids, svals)
     scores = sums * counts if count_bonus else sums
@@ -108,10 +124,11 @@ def segmented_topk_presorted(sids: torch.Tensor, svals: torch.Tensor, k: int,
 
 
 def segmented_topk(ids: torch.Tensor, vals: torch.Tensor, k: int,
-                   count_bonus: bool = False):
+                   count_bonus: bool = False, exact_topk: bool = True):
     """Sum contributions per unique id (SENTINEL = invalid) -> exact top-k
     (ids, sums, counts); see segmented_topk_presorted. The id sort is
-    stable, so equal ids keep their contribution order."""
+    stable, so equal ids keep their contribution order. exact_topk has no
+    effect, as in segmented_topk_presorted."""
     sids, order = torch.sort(ids, dim=-1, stable=True)
     return segmented_topk_presorted(sids, torch.gather(vals, -1, order), k,
                                     count_bonus=count_bonus)

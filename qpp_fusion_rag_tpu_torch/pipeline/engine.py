@@ -1,5 +1,5 @@
-"""The dense flagship step (retrieve -> QPP -> weight -> fuse) and the back
-half every serving step shares.
+"""The dense flagship step (retrieve -> QPP -> weight -> fuse), the back
+half every serving step shares, and the learned-fusion training step.
 
 Counterpart of qpp_fusion_rag_tpu/pipeline/engine.py:
 
@@ -15,18 +15,21 @@ Retrieval takes one of three routes, chosen as in JAX:
     corpus_transposed=True, through K7 (pallas_multi_view_topk);
   * otherwise the chunked matmul of ops.dense (no kernel).
 There is no jit: each call runs eagerly on the corpus's device, and its
-other inputs (tensors or numpy arrays) move there. The training step
-(make_train_state, learned_fusion_train_step) is not ported yet (ROADMAP
-Queue 1).
+other inputs (tensors or numpy arrays) move there.
+
+The training step (make_train_state, learned_fusion_train_step) retrieves
+on the plain route, computes in-batch normalized QPP features without
+gradient, and takes one Adam step of the MLP's soft cross-entropy, as JAX's
+does; torch.optim.Adam updates the state's parameters in place.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from qpp_fusion_rag_tpu_torch.models.mlp import mlp_apply
+from qpp_fusion_rag_tpu_torch.models.mlp import init_mlp_params, mlp_apply, soft_cross_entropy
 from qpp_fusion_rag_tpu_torch.ops import dense as D
 from qpp_fusion_rag_tpu_torch.ops import fusion as F
 from qpp_fusion_rag_tpu_torch.ops import qpp as Q
@@ -166,3 +169,61 @@ def learned_fused_retrieval_step(
     fused_ids, fused_scores = weight_and_fuse(ids, norm, learned_weights(mlp_params, qpp),
                                               k_out=k_out)
     return fused_ids, fused_scores, qpp
+
+
+# =============================================================================
+# Learned-fusion training step
+# =============================================================================
+
+class TrainState(NamedTuple):
+    params: list        # [{"w": [in, out], "b": [out]}, ...] leaf tensors
+    opt_state: dict     # the optimizer's per-parameter state (Adam.state)
+
+
+def make_train_state(
+    key: torch.Generator,
+    n_retrievers: int,
+    n_qpp_features: int,
+    hidden_sizes=(32, 16),
+    learning_rate: float = 1e-3,
+) -> Tuple[TrainState, torch.optim.Adam]:
+    """He-init MLP [n_qpp_features, *hidden_sizes, n_retrievers] drawn from
+    `key` on its device -> (TrainState, Adam over its parameters with
+    optax's defaults: betas (0.9, 0.999), eps 1e-8)."""
+    sizes = [n_qpp_features, *hidden_sizes, n_retrievers]
+    params = [{k: v.requires_grad_(True) for k, v in layer.items()}
+              for layer in init_mlp_params(key, sizes)]
+    opt = torch.optim.Adam([p for layer in params for p in layer.values()],
+                           lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    return TrainState(params, opt.state), opt
+
+
+def learned_fusion_train_step(
+    state: TrainState,
+    opt: torch.optim.Adam,
+    q_emb,                    # [B, D]
+    targets,                  # [B, R] soft quality targets
+    view_proj,                # [R, D, Dv]
+    corpus: torch.Tensor,     # [N, Dv]
+    text_feats,               # [B, 4]
+    k: int = 100,
+    chunk: int = 8192,
+) -> Tuple[TrainState, torch.Tensor]:
+    """One training step: retrieval (ops.dense.multi_view_topk, no
+    kernel) and in-batch normalized QPP features without gradient, then
+    one Adam step on the soft cross-entropy of the MLP over the [B, R*13]
+    features. JAX returns a new state; here `opt` updates state.params in
+    place and the same state comes back, with the loss (0-d, detached).
+    Inputs move to the corpus's device."""
+    dev = corpus.device
+    with torch.no_grad():
+        vals, ids = D.multi_view_topk(_f32_on(q_emb, dev), _f32_on(view_proj, dev), corpus,
+                                      k=k, chunk=chunk)
+        qpp = qpp_from_runs(vals, ids, _f32_on(text_feats, dev))
+        R, B, M = qpp.shape
+        feats = qpp.permute(1, 0, 2).reshape(B, R * M)
+    opt.zero_grad(set_to_none=True)
+    loss = soft_cross_entropy(mlp_apply(state.params, feats), _f32_on(targets, dev))
+    loss.backward()
+    opt.step()
+    return state, loss.detach()

@@ -1,5 +1,5 @@
-"""Carry built indexes, flagship corpora and MLP parameters over from the
-JAX package's layouts.
+"""Carry built indexes, flagship corpora, MLP parameters and their Adam
+state, and tree ensembles over from the JAX package's layouts.
 
 The JAX package's ``EnsembleIndexes`` holds the int8 dense corpus as
 ``corpus_int`` [D, N] (its TPU kernel layout) and ``corpus_rows`` [N, D]
@@ -17,6 +17,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from qpp_fusion_rag_tpu_torch.ops.trees import TreeEnsemble
 from qpp_fusion_rag_tpu_torch.pipeline.ensemble import EnsembleIndexes
 
 _INT32_MAX = 2**31 - 1
@@ -130,9 +131,48 @@ def flagship_corpus_from_numpy(corpus, device, corpus_scale=None):
             scale.to(device=device, dtype=torch.float32).contiguous())
 
 
-def mlp_params_from_numpy(params, device):
+def mlp_params_from_numpy(params, device, requires_grad: bool = False):
     """A JAX MLP parameter list [{"w": [in, out], "b": [out]}, ...] (numpy or
-    jax arrays) -> the same list of f32 tensors on `device` for
-    models.mlp.mlp_apply."""
-    return [{"w": _tensor(layer["w"], device, torch.float32),
-             "b": _tensor(layer["b"], device, torch.float32)} for layer in params]
+    jax arrays) -> the same list of f32 leaf tensors on `device` for
+    models.mlp.mlp_apply; with requires_grad they take gradients, so an
+    optimizer (pipeline.engine's training step) can update them. The
+    tensors are copies: an update never writes to the caller's arrays."""
+    return [{name: _tensor(layer[name], device, torch.float32).clone()
+             .requires_grad_(requires_grad)
+             for name in ("w", "b")} for layer in params]
+
+
+def adam_state_from_optax(opt: torch.optim.Adam, params, opt_state) -> torch.optim.Adam:
+    """Load optax's Adam state into `opt`: ``opt_state`` is optax.adam's
+    state (or its ScaleByAdamState) with ``count``, ``mu`` and ``nu`` laid
+    out as the parameter list; ``params`` is the port's parameter list
+    (mlp_params_from_numpy(..., requires_grad=True)) that `opt` updates.
+    Each parameter gets torch's ``step`` (the count), ``exp_avg`` (mu) and
+    ``exp_avg_sq`` (nu). -> opt."""
+    adam = opt_state
+    if not hasattr(adam, "mu"):
+        adam = next(s for s in opt_state if hasattr(s, "mu"))
+    step = float(np.asarray(adam.count))
+    for layer, mu, nu in zip(params, adam.mu, adam.nu):
+        for name, p in layer.items():
+            opt.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": _tensor(mu[name], p.device, p.dtype).clone(),
+                "exp_avg_sq": _tensor(nu[name], p.device, p.dtype).clone(),
+            }
+    return opt
+
+
+def tree_ensemble_from_numpy(ens, device) -> TreeEnsemble:
+    """The fields of a JAX TreeEnsemble (numpy or jax arrays; a NamedTuple
+    or a mapping) -> the port's TreeEnsemble on `device`."""
+    f = ens._asdict() if hasattr(ens, "_asdict") else dict(ens)
+    return TreeEnsemble(
+        feature=_tensor(f["feature"], device, torch.int32),
+        threshold=_tensor(f["threshold"], device, torch.float32),
+        children=_tensor(f["children"], device, torch.int32),
+        value=_tensor(f["value"], device, torch.float32),
+        max_depth=int(f["max_depth"]),
+        base_score=float(f["base_score"]),
+        learning_rate=float(f["learning_rate"]),
+    )

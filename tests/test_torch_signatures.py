@@ -8,41 +8,66 @@ the presorted layout as JAX does. The dense kernel entry points take JAX's
 n_real = 0 as "every doc is real". The index layer and the retrievers take
 JAX's parameters and at most a `device` after them."""
 
+import importlib
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from qpp_fusion_rag_tpu import retrievers as JRG
+from qpp_fusion_rag_tpu import ops as JOPS
 from qpp_fusion_rag_tpu.data import loaders as JL
+from qpp_fusion_rag_tpu.data import synthetic as JSYN
 from qpp_fusion_rag_tpu.data.synthetic import zipf_bm25_csr, zipf_queries
 from qpp_fusion_rag_tpu.encoders import heads as JH
 from qpp_fusion_rag_tpu.index import autotune as JA
 from qpp_fusion_rag_tpu.index import engines as JEN
 from qpp_fusion_rag_tpu.index import native as JN
 from qpp_fusion_rag_tpu.index import sparse as JIX
+from qpp_fusion_rag_tpu.models import base as JMB
+from qpp_fusion_rag_tpu.models import gbdt as JMG
+from qpp_fusion_rag_tpu.models import interop as JMI
+from qpp_fusion_rag_tpu.models import mlp as JMM
 from qpp_fusion_rag_tpu.ops import dense as JD
+from qpp_fusion_rag_tpu.ops import fusion as JF
+from qpp_fusion_rag_tpu.ops import qpp as JQ
+from qpp_fusion_rag_tpu.ops import segment as JSEG
 from qpp_fusion_rag_tpu.ops import sparse as JSP
+from qpp_fusion_rag_tpu.ops import trees as JT
 from qpp_fusion_rag_tpu.ops.pallas import dense_topk as JK
 from qpp_fusion_rag_tpu.ops.pallas import streaming_topk as JS
+from qpp_fusion_rag_tpu.pipeline import engine as JENG
 from qpp_fusion_rag_tpu.pipeline import ensemble as JE
 from qpp_fusion_rag_tpu.retrievers import base as JBASE
 from qpp_fusion_rag_tpu.retrievers import bm25 as JBM
 from qpp_fusion_rag_tpu.retrievers import dense as JR
 from qpp_fusion_rag_tpu.retrievers import splade as JSPL
 from qpp_fusion_rag_tpu.retrievers import two_stage as JTS
+from qpp_fusion_rag_tpu_torch import config as TC
+from qpp_fusion_rag_tpu_torch import ops as TOPS
 from qpp_fusion_rag_tpu_torch import retrievers as TRG
 from qpp_fusion_rag_tpu_torch.data import loaders as TL
+from qpp_fusion_rag_tpu_torch.data import synthetic as TSYN
 from qpp_fusion_rag_tpu_torch.index import autotune as TA
 from qpp_fusion_rag_tpu_torch.index import engines as TEN
 from qpp_fusion_rag_tpu_torch.index import native as TN
 from qpp_fusion_rag_tpu_torch.index import sparse as TIX
+from qpp_fusion_rag_tpu_torch.models import base as TMB
+from qpp_fusion_rag_tpu_torch.models import gbdt as TMG
+from qpp_fusion_rag_tpu_torch.models import interop as TMI
+from qpp_fusion_rag_tpu_torch.models import mlp as TMM
 from qpp_fusion_rag_tpu_torch.ops import dense as TD
+from qpp_fusion_rag_tpu_torch.ops import fusion as TF
+from qpp_fusion_rag_tpu_torch.ops import qpp as TQ
+from qpp_fusion_rag_tpu_torch.ops import segment as TSEG
 from qpp_fusion_rag_tpu_torch.ops import sparse as TSP
+from qpp_fusion_rag_tpu_torch.ops import trees as TT
 from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk as TK
 from qpp_fusion_rag_tpu_torch.ops.kernels import streaming_topk as TS
+from qpp_fusion_rag_tpu_torch.pipeline import engine as TENG
 from qpp_fusion_rag_tpu_torch.pipeline import ensemble as TE
 from qpp_fusion_rag_tpu_torch.retrievers import base as TBASE
 from qpp_fusion_rag_tpu_torch.retrievers import bm25 as TBM
@@ -50,12 +75,20 @@ from qpp_fusion_rag_tpu_torch.retrievers import dense as TR
 from qpp_fusion_rag_tpu_torch.retrievers import splade as TSPL
 from qpp_fusion_rag_tpu_torch.retrievers import two_stage as TTS
 
+JC = importlib.import_module("qpp_fusion_rag_tpu.config")
 
-# The one parameter the port names otherwise: its int8 entry points take the
+
+# The parameters the port names otherwise. Its int8 entry points take the
 # corpus as int8 ROWS [N, D], corpus_rows, where JAX takes a [D, N] copy,
-# corpus_int. One row-major layout serves the kernels and the rerank
-# gather (ops/kernels/dense_topk.py), so the port keeps no second copy.
-PORT_NAME = {"corpus_int": "corpus_rows"}
+# corpus_int: one row-major layout serves the kernels and the rerank gather
+# (ops/kernels/dense_topk.py), so the port keeps no second copy. So the float
+# rows that JAX's dense_view_rescored calls corpus_rows are the port's
+# rerank_rows. The map applies once per name: JAX's corpus_int becomes
+# corpus_rows, and JAX's corpus_rows becomes rerank_rows, so a JAX keyword
+# call of either fails loudly in the port.
+PORT_NAME = {"corpus_int": "corpus_rows", "corpus_rows": "rerank_rows"}
+# The one default the port spells otherwise: init_mlp_params' dtype.
+PORT_DEFAULT = {jnp.float32: torch.float32}
 
 
 def _names(fn):
@@ -92,6 +125,75 @@ def _names(fn):
     (JK.pallas_multi_view_topk_int8, TK.pallas_multi_view_topk_int8),
     (JS._streaming_group_max, TS.streaming_group_max),
     (JS.streaming_dense_topk, TS.streaming_dense_topk),
+    (JSEG.segmented_topk, TSEG.segmented_topk),
+    (JSEG.segmented_topk_presorted, TSEG.segmented_topk_presorted),
+    (JSEG.segmented_sums_presorted, TSEG.segmented_sums_presorted),
+    (JE.dense_view_topk, TE.dense_view_topk),
+    (JE.dense_view_rescored, TE.dense_view_rescored),
+    (JQ.text_features, TQ.text_features),
+    (JQ.text_features_batch, TQ.text_features_batch),
+    (JQ.normalize_qpp, TQ.normalize_qpp),
+    (JF.fuse, TF.fuse),
+    (JSYN.exact_sparse_scores_host, TSYN.exact_sparse_scores_host),
+    (JC._expand, TC._expand),
+    (JC._expand_tree, TC._expand_tree),
+    (JC._deep_merge, TC._deep_merge),
+    (JC.detect_dataset, TC.detect_dataset),
+    (JC.ConfigDict.__init__, TC.ConfigDict.__init__),
+    (JC.ConfigDict.get, TC.ConfigDict.get),
+    (JC.ConfigDict.to_dict, TC.ConfigDict.to_dict),
+    (JC.Config.__init__, TC.Config.__init__),
+    (JC.Config.load, TC.Config.load),
+    (JC.Config.get_qpp_index, TC.Config.get_qpp_index),
+    (JC.Config.dataset, TC.Config.dataset),
+    (JT._traverse, TT._traverse),
+    (JT.predict_ensemble, TT.predict_ensemble),
+    (JT.stack_trees, TT.stack_trees),
+    (JMB.BaseFusionModel.__init__, TMB.BaseFusionModel.__init__),
+    (JMB.BaseFusionModel.train, TMB.BaseFusionModel.train),
+    (JMB.BaseFusionModel.predict, TMB.BaseFusionModel.predict),
+    (JMB.BaseFusionModel.predict_single, TMB.BaseFusionModel.predict_single),
+    (JMB.BaseFusionModel.save, TMB.BaseFusionModel.save),
+    (JMB.BaseFusionModel.load, TMB.BaseFusionModel.load),
+    (JMB.BaseFusionModel._normalize_weights, TMB.BaseFusionModel._normalize_weights),
+    (JMB.load_model, TMB.load_model),
+    (JMB.build_features, TMB.build_features),
+    (JMB.compute_targets, TMB.compute_targets),
+    (JMM.init_mlp_params, TMM.init_mlp_params),
+    (JMM.mlp_apply, TMM.mlp_apply),
+    (JMM.soft_cross_entropy, TMM.soft_cross_entropy),
+    (JMM.FusionMLP.__init__, TMM.FusionMLP.__init__),
+    (JMM.FusionMLP._filter_features, TMM.FusionMLP._filter_features),
+    (JMM.FusionMLP.train, TMM.FusionMLP.train),
+    (JMM.FusionMLP.predict, TMM.FusionMLP.predict),
+    (JENG.make_train_state, TENG.make_train_state),
+    (JENG.learned_fusion_train_step, TENG.learned_fusion_train_step),
+    (JMG.make_bins, TMG.make_bins),
+    (JMG.bin_data, TMG.bin_data),
+    (JMG._best_split, TMG._best_split),
+    (JMG.grow_tree, TMG.grow_tree),
+    (JMG._predict_tree_host, TMG._predict_tree_host),
+    (JMG.Booster.__init__, TMG.Booster.__init__),
+    (JMG.Booster.fit, TMG.Booster.fit),
+    (JMG.Booster.ensemble, TMG.Booster.ensemble),
+    (JMG.Booster.predict, TMG.Booster.predict),
+    (JMG.PerRetrieverGBDT.__init__, TMG.PerRetrieverGBDT.__init__),
+    (JMG.PerRetrieverGBDT.train, TMG.PerRetrieverGBDT.train),
+    (JMG.PerRetrieverGBDT.predict, TMG.PerRetrieverGBDT.predict),
+    (JMG.MultiOutputGBDT.__init__, TMG.MultiOutputGBDT.__init__),
+    (JMI.parse_lgbm_model_str, TMI.parse_lgbm_model_str),
+    (JMI._finish_tree, TMI._finish_tree),
+    (JMI.booster_to_ensemble, TMI.booster_to_ensemble),
+    (JMI._traverse_host, TMI._traverse_host),
+    (JMI._normalize_weights, TMI._normalize_weights),
+    (JMI._load_envelope, TMI._load_envelope),
+    (JMI._RefUnpickler.find_class, TMI._RefUnpickler.find_class),
+    (JMI.ReferenceGBDTFusion.__init__, TMI.ReferenceGBDTFusion.__init__),
+    (JMI.ReferenceGBDTFusion.predict, TMI.ReferenceGBDTFusion.predict),
+    (JMI.ReferenceMLPFusion.__init__, TMI.ReferenceMLPFusion.__init__),
+    (JMI.ReferenceMLPFusion._filter, TMI.ReferenceMLPFusion._filter),
+    (JMI.ReferenceMLPFusion.predict, TMI.ReferenceMLPFusion.predict),
+    (JMI.load_reference_fusion_model, TMI.load_reference_fusion_model),
 ], ids=lambda f: getattr(f, "__qualname__", None))
 def test_port_takes_jax_parameters_in_jax_order(jax_fn, port_fn):
     j = [PORT_NAME.get(n, n) for n in _names(jax_fn)]
@@ -100,7 +202,8 @@ def test_port_takes_jax_parameters_in_jax_order(jax_fn, port_fn):
     jp, tp = inspect.signature(jax_fn).parameters, inspect.signature(port_fn).parameters
     for name in jp:                                # and their defaults
         if jp[name].default is not inspect.Parameter.empty:
-            assert tp[PORT_NAME.get(name, name)].default == jp[name].default, name
+            want = PORT_DEFAULT.get(jp[name].default, jp[name].default)
+            assert tp[PORT_NAME.get(name, name)].default == want, name
 
 
 # ------------------------------------------------------------- dense ------
@@ -472,3 +575,43 @@ def test_index_layer_registry_and_exports_match_jax():
     for cls in ("TunedConfig", "TunedDenseConfig"):
         assert [f.name for f in __import__("dataclasses").fields(getattr(TA, cls))] == \
             [f.name for f in __import__("dataclasses").fields(getattr(JA, cls))]
+
+
+# ---------------------------------------------- segment (F7) and records ----
+
+@pytest.mark.parametrize("count_bonus", [False, True])
+def test_segmented_topk_takes_jax_exact_topk_keyword(count_bonus):
+    """ops/fusion.py's and ops/sparse.py's calls, segmented_topk(...,
+    exact_topk=True) and the presorted one, run in the port (F7) and equal
+    JAX's vmapped rows: integer-valued contributions, so the f32 run sums
+    are exact in any order."""
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, 40, (6, 96)).astype(np.int32)
+    ids[:, -10:] = JSEG.SENTINEL
+    vals = np.where(ids == JSEG.SENTINEL, 0, rng.integers(0, 9, ids.shape)).astype(np.float32)
+    kw = dict(count_bonus=count_bonus, exact_topk=True)
+    ref = jax.vmap(lambda i, v: JSEG.segmented_topk(i, v, 12, **kw))(jnp.asarray(ids),
+                                                                     jnp.asarray(vals))
+    out = TSEG.segmented_topk(torch.as_tensor(ids), torch.as_tensor(vals), 12, **kw)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    order = np.argsort(ids, axis=1, kind="stable")
+    sids, svals = np.take_along_axis(ids, order, 1), np.take_along_axis(vals, order, 1)
+    ref = jax.vmap(lambda i, v: JSEG.segmented_topk_presorted(i, v, 12, **kw))(
+        jnp.asarray(sids), jnp.asarray(svals))
+    out = TSEG.segmented_topk_presorted(torch.as_tensor(sids), torch.as_tensor(svals), 12,
+                                        exact_topk=False, count_bonus=count_bonus)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_records_and_exports_match_jax():
+    """The NamedTuple records have JAX's fields in JAX's order, and the
+    ops package re-exports JAX's names that exist in the port (the metrics
+    names wait for ops/metrics.py)."""
+    assert TT.TreeEnsemble._fields == JT.TreeEnsemble._fields
+    assert TENG.TrainState._fields == JENG.TrainState._fields
+    metrics = {"align_relevance", "compute_measures", "aggregate_measures"}
+    assert TOPS.__all__ == [n for n in JOPS.__all__ if n not in metrics]
+    for name in TOPS.__all__:
+        assert getattr(TOPS, name).__name__ == getattr(JOPS, name).__name__
