@@ -59,7 +59,18 @@ weights served by learned_fused_retrieval_step through K7, and
 FusionMLP.train and PerRetrieverGBDT.fit with the config defaults on the
 int8 route's raw QPP features of the three batches (80/20 split, seeded
 soft targets), their card predictions held to CPU copies and to the host
-traversal. Every
+traversal. Phase [14] drives the offline research path (stages 03-06 and
+10) over runs the kernels make: the ensemble step's five views of the
+three batches in q8 mode (K1, K2, K3) become a RunTensor [5, 3072, 100]
+("BM25", "Splade", "BGE", "BM25_TCT", "BM25_MonoT5"; qids test0..test3071;
+docnos doc<row>); it writes their TREC runs (raw and .norm.res), a
+queries.jsonl, seeded qrels and a corpus .jsonl under build/, reads them
+back through the loaders, runs the QPP stage (compute_qpp_dir), the six
+fusion methods and combsum at the default depth (run_fusion), ten IR
+metrics over the five views and six fused runs, the oracle, ProbFuse and
+argmax-QPP baselines, and stage 04 (train_fusion_models, per_retriever and
+mlp) with the learned method served from its pickle; QPP, fusion and
+metrics are held to CPU copies. Every
 phase raises on failure and prints its seconds. The line before the last
 is a JSON summary of the ten kernels; the last line is
 
@@ -1502,6 +1513,358 @@ def training_and_models(rows_bf16, rows_i8, d_scale, fbatches, view_proj, smi, d
     return out
 
 
+# ------------------------------------------------- [14] offline research path
+
+OFFLINE_VIEWS = ("BM25", "Splade", "BGE", "BM25_TCT", "BM25_MonoT5")
+FUSION_METHODS = ("combsum", "combmnz", "rrf", "wcombsum", "wcombmnz", "wrrf")
+QPP_TOL = dict(rtol=1e-5, atol=1e-6)          # tests/test_torch_qpp_fusion.py
+SUM_ORDER_TOL = dict(rtol=1e-4, atol=1e-5)    # RSD and snqc (tests/test_torch_fusion_engine.py)
+SUM_ORDER_COLS = (5, 10)
+FUSED_RTOL, TIE_RTOL = 1e-6, 4e-6             # fused scores; consecutive near-ties
+METRIC_ATOL = 1e-6
+QRELS_SEED, CORPUS_SEED = 14, 15
+
+
+def offline_views(idx, batches):
+    """[14a] The ensemble step's five views of each batch, formed with the
+    step's own calls (pipeline/ensemble.py) in q8 mode over the presorted
+    index: K2 and K3 under the sparse views, K1 under the dense view, the
+    two rerank views over the BM25 candidates. -> (ids [5, Q, K] int32 corpus
+    rows, PAD_ID padded; scores [5, Q, K] f32, -inf padded), host numpy."""
+    from qpp_fusion_rag_tpu_torch.data.vocab import PAD_ID
+    from qpp_fusion_rag_tpu_torch.pipeline.ensemble import (
+        dense_view_topk,
+        make_sparse_scorer,
+        rerank_candidates,
+    )
+
+    sparse = make_sparse_scorer("q8", 0, TOP_K, P_CAP, presorted=True)
+    ids, vals = [], []
+    for bt, bq, st, sq, q_emb, proj, _ in batches:
+        bm25_s, bm25_i = sparse(idx.bm25_packed, idx.bm25_offsets, idx.bm25_scales, bt, bq)
+        splade_s, splade_i = sparse(idx.splade_packed, idx.splade_offsets, idx.splade_scales,
+                                    st, sq)
+        dense_s, dense_i = dense_view_topk(q_emb, idx.corpus_rows, idx.d_scale, TOP_K)
+        qv = torch.einsum("bd,vdw->vbw", q_emb, proj)
+        rr_s, rr_i = rerank_candidates(qv, bm25_i, idx.corpus_rows, idx.d_scale)
+        vals.append(torch.stack([bm25_s, splade_s, dense_s, rr_s[0], rr_s[1]]))
+        ids.append(torch.stack([bm25_i, splade_i, dense_i, rr_i[0], rr_i[1]]))
+    ids, vals = torch.cat(ids, dim=1), torch.cat(vals, dim=1)
+    valid = ids >= 0
+    return (torch.where(valid, ids, PAD_ID).to(torch.int32).cpu().numpy(),
+            torch.where(valid, vals.float(), float("-inf")).cpu().numpy())
+
+
+def write_stage_files(root, rt, terms):
+    """[14b] The stage files: each view's raw run and its min-max
+    normalized run (write_trec), queries.jsonl (the BM25 term ids as
+    words), a seeded qrels/test.tsv (1-4 relevant docs a query at grades
+    1-2, alternately from the union of the views' top-20 and uniformly from
+    the corpus) and a corpus .jsonl of the views' top-5 docs with seeded
+    text. -> (queries, qrels, corpus texts, write_trec host seconds)."""
+    t0 = time.perf_counter()
+    norm = rt.minmax_normalized()
+    for r, name in enumerate(rt.retrievers):
+        rt.write_trec(r, root / "runs" / f"{name}.res")
+        norm.write_trec(r, root / "runs" / f"{name}.norm.res")
+    write_s = time.perf_counter() - t0
+    queries = {q: " ".join(f"t{t}" for t in row if t >= 0) for q, row in zip(rt.qids, terms)}
+    with open(root / "queries.jsonl", "w") as f:
+        for q, text in queries.items():
+            f.write(json.dumps({"_id": q, "text": text}) + "\n")
+    rng = np.random.default_rng(QRELS_SEED)
+    n_docs = len(rt.vocab)
+    qrels = {}
+    for qi, q in enumerate(rt.qids):
+        top = rt.doc_ids[:, qi, :20]
+        pool = np.unique(top[top >= 0])
+        docs = [int(rng.choice(pool)) if j % 2 == 0 else int(rng.integers(0, n_docs))
+                for j in range(int(rng.integers(1, 5)))]
+        qrels[q] = {rt.vocab.docno_of(d): int(rng.integers(1, 3)) for d in docs}
+    (root / "qrels").mkdir()
+    with open(root / "qrels" / "test.tsv", "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n")
+        for q, rels in qrels.items():
+            for d, g in rels.items():
+                f.write(f"{q}\t{d}\t{g}\n")
+    top5 = np.unique(rt.doc_ids[:, :, :5])
+    top5 = top5[top5 >= 0]
+    words = np.random.default_rng(CORPUS_SEED).integers(0, 5000, (len(top5), 8))
+    corpus = {}
+    with open(root / "corpus.jsonl", "w") as f:
+        for d, w in zip(top5.tolist(), words.tolist()):
+            docno, title = rt.vocab.docno_of(d), f"Title {d}" if d % 3 == 0 else ""
+            text = " ".join(f"w{x}" for x in w)
+            f.write(json.dumps({"_id": docno, "title": title, "text": text}) + "\n")
+            corpus[docno] = f"{title} {text}".strip() if title else text
+    return queries, qrels, corpus, write_s
+
+
+def read_back(root, rt, queries, qrels, corpus):
+    """[14b] The loaders return what was written: the raw runs' docnos row
+    for row with scores within the .6f rounding, the queries, the qrels and
+    every corpus text. -> from_trec_dir host seconds."""
+    from qpp_fusion_rag_tpu_torch.data import LazyCorpus, RunTensor, load_qrels, load_queries
+
+    if load_queries(root) != queries:
+        raise AssertionError("load_queries differs from queries.jsonl")
+    if load_qrels(root / "qrels" / "test.tsv") != qrels:
+        raise AssertionError("load_qrels differs from qrels/test.tsv")
+    t0 = time.perf_counter()
+    back = RunTensor.from_trec_dir(root / "runs", use_normalized=False)
+    load_s = time.perf_counter() - t0
+    if back.retrievers != sorted(rt.retrievers) or back.qids != rt.qids or back.K != rt.K:
+        raise AssertionError(f"from_trec_dir: {back.retrievers}, {back.Q} queries, K {back.K}")
+    # a docno "doc<i>" is corpus row i, as is a vocab id of rt
+    rows = np.array([int(d[3:]) for d in back.vocab.docnos()] + [-1], np.int64)
+    for r, name in enumerate(back.retrievers):
+        src = rt.retrievers.index(name)
+        if not np.array_equal(rows[back.doc_ids[r]], rt.doc_ids[src]):
+            raise AssertionError(f"{name}: the runs read back hold other docnos")
+        want, got = rt.scores[src], back.scores[r]
+        ok = np.isneginf(want) == np.isneginf(got)
+        fin = np.isfinite(want)
+        ok[fin] = np.abs(got[fin] - want[fin]) <= 5.0001e-7 + np.abs(want[fin]) * 2.0 ** -23
+        if not ok.all():
+            raise AssertionError(f"{name}: scores read back beyond the .6f rounding")
+    lazy = LazyCorpus(root / "corpus.jsonl")
+    if len(lazy) != len(corpus) or lazy.get_many(list(corpus)) != corpus:
+        raise AssertionError("LazyCorpus.get_many differs from corpus.jsonl")
+    return load_s
+
+
+def qpp_close(g, c, what):
+    g, c = np.asarray(g), np.asarray(c)
+    other = [i for i in range(13) if i not in SUM_ORDER_COLS]
+    np.testing.assert_allclose(g[..., other], c[..., other], **QPP_TOL, err_msg=what)
+    np.testing.assert_allclose(g[..., list(SUM_ORDER_COLS)], c[..., list(SUM_ORDER_COLS)],
+                               **SUM_ORDER_TOL, err_msg=f"{what} (RSD, snqc)")
+    return float(np.abs(g - c).max())
+
+
+def check_fused(fused, q, k_out, what):
+    """A fused run as check_step_output checks a step: [1, Q, k_out], unique
+    real ids within the vocab, finite scores that never increase along a
+    row; padding only at a row's end (a query whose views hold fewer than
+    k_out distinct docs)."""
+    ids, s = fused.doc_ids[0], fused.scores[0]
+    if fused.doc_ids.shape != (1, q, k_out):
+        raise AssertionError(f"{what}: shape {fused.doc_ids.shape}")
+    valid = ids >= 0
+    if (valid[:, 1:] & ~valid[:, :-1]).any() or not valid[:, 0].all():
+        raise AssertionError(f"{what}: padding before a real id, or an empty row")
+    if int(ids.max()) >= len(fused.vocab) or not np.isfinite(s[valid]).all():
+        raise AssertionError(f"{what}: an id beyond the vocab, or a non-finite score")
+    if (np.diff(np.where(valid, s, 0), axis=1)[valid[:, 1:]] > 0).any():
+        raise AssertionError(f"{what}: fused scores increase along a row")
+    srt = np.sort(np.where(valid, ids, -1 - np.arange(k_out)), axis=1)
+    if (srt[:, 1:] == srt[:, :-1]).any():
+        raise AssertionError(f"{what}: duplicate ids in a row")
+    return int((~valid).sum())
+
+
+def fused_close(g, c, what):
+    """Card against CPU: scores within FUSED_RTOL; ids equal outside
+    near-ties (groups of consecutive CPU scores within TIE_RTOL hold the
+    same ids; the group a row's end cuts may hold other near-equal ids)."""
+    np.testing.assert_allclose(g.scores, c.scores, rtol=FUSED_RTOL, atol=0, err_msg=what)
+    gi, ci, gs, cs = g.doc_ids[0], c.doc_ids[0], g.scores[0], c.scores[0]
+    rows = np.flatnonzero((gi != ci).any(axis=1))
+    for b in rows:
+        n, i = ci.shape[1], 0
+        while i < n:
+            j = i + 1
+            while j < n and np.isclose(cs[b, j], cs[b, j - 1], rtol=TIE_RTOL, atol=0):
+                j += 1
+            if set(gi[b, i:j]) != set(ci[b, i:j]) and (
+                    j < n or not np.allclose(gs[b, i:j], cs[b, i], rtol=TIE_RTOL, atol=0)):
+                raise AssertionError(f"{what}: ids differ outside a near-tie at query {b}, "
+                                     f"ranks {i}-{j - 1}")
+            i = j
+    return len(rows)
+
+
+def phase_done(name, t0):
+    sec = time.perf_counter() - t0
+    log(f"  {name} done in {sec:.1f} s")
+    return sec
+
+
+def offline_research_path(idx, batches, smi, dev):
+    """Phase [14]: the offline research path (stages 03-06 and 10) over the
+    runs that the port's kernels produce. Runs on `dev`; every check holds
+    the card against a CPU copy."""
+    import tempfile
+
+    from qpp_fusion_rag_tpu_torch.data import DocVocab, RunTensor, load_qpp_scores
+    from qpp_fusion_rag_tpu_torch.evaluation import IREvaluator
+    from qpp_fusion_rag_tpu_torch.fusion import oracle_report, run_fusion
+    from qpp_fusion_rag_tpu_torch.fusion.argmax_qpp import argmax_qpp_experiment
+    from qpp_fusion_rag_tpu_torch.fusion.probfuse import probfuse_experiment
+    from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
+    from qpp_fusion_rag_tpu_torch.qpp import compute_qpp_dir, compute_qpp_for_runtensor
+    from qpp_fusion_rag_tpu_torch.train import train_fusion_models
+
+    out, sub = {}, {}
+    n_docs = idx.corpus_rows.shape[0]
+    t0 = time.perf_counter()
+    (ids, vals), views_ms, launches = launched(
+        "[14a] the five views of the three batches (q8, presorted)",
+        lambda: offline_views(idx, batches),
+        ("group_max_packed_int8", "bitonic_segsum_rows", "gather_windows"))
+    q = ids.shape[1]
+    vocab = DocVocab(f"doc{i}" for i in range(n_docs))
+    rt = RunTensor.from_arrays(ids, vals, [f"test{i}" for i in range(q)], OFFLINE_VIEWS, vocab)
+    log(f"  views {tuple(ids.shape)} ({rt.valid_counts.sum()} real entries) named "
+        f"{list(OFFLINE_VIEWS)}, vocab of {len(vocab)} docnos in row order")
+    out["views"] = {"ms": views_ms, "launches": launches, "shape": list(ids.shape)}
+    sub["[14a]"] = phase_done("[14a]", t0)
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    LAUNCHES.clear()
+    with tempfile.TemporaryDirectory(dir=build, prefix="offline_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        terms = torch.cat([b[0] for b in batches]).cpu().numpy()
+        queries, qrels, corpus, write_s = write_stage_files(root, rt, terms)
+        load_s = read_back(root, rt, queries, qrels, corpus)
+        n_lines = 2 * int(rt.valid_counts.sum())
+        log(f"[14b] stage files: {n_lines} TREC lines (raw and .norm.res) written in "
+            f"{write_s:.3f} s (write_trec, host), the raw runs read back in {load_s:.3f} s "
+            f"(from_trec_dir, host): docnos equal row for row, scores within the .6f "
+            f"rounding; queries, qrels ({sum(map(len, qrels.values()))} judgments) and "
+            f"{len(corpus)} corpus texts (LazyCorpus.get_many) equal")
+        out["files"] = {"write_trec_s": write_s, "from_trec_dir_raw_s": load_s,
+                        "trec_lines": n_lines}
+        sub["[14b]"] = phase_done("[14b]", t0)
+
+        t0 = time.perf_counter()
+        written = compute_qpp_dir(root / "runs", root / "qpp", root / "queries.jsonl",
+                                  device=dev)
+        stage_s = time.perf_counter() - t0
+        if sorted(p.name for p in written) != sorted(f"{n}.res.mmnorm.qpp" for n in OFFLINE_VIEWS):
+            raise AssertionError(f"compute_qpp_dir wrote {written}")
+        qpp_data = load_qpp_scores(root / "qpp")
+        if len(qpp_data) != q or any(sorted(v) != sorted(OFFLINE_VIEWS) or
+                                     any(len(x) != 13 for x in v.values())
+                                     for v in qpp_data.values()):
+            raise AssertionError("load_qpp_scores: not 13 scores per (query, view)")
+        g_qpp, qpp_ms = timed_call(lambda: compute_qpp_for_runtensor(rt, queries, device=dev))
+        c_qpp = compute_qpp_for_runtensor(rt, queries, device="cpu")
+        qpp_diff = qpp_close(g_qpp, c_qpp, "compute_qpp_for_runtensor: card vs CPU")
+        log(f"[14c] QPP stage: compute_qpp_dir wrote {len(written)} .res.mmnorm.qpp files in "
+            f"{stage_s:.3f} s (parse + device + write), read back {len(qpp_data)} queries x "
+            f"{len(OFFLINE_VIEWS)} views; compute_qpp_for_runtensor [{', '.join(map(str, g_qpp.shape))}] "
+            f"{qpp_ms:.3f} ms on the card, equal to a CPU copy within rtol "
+            f"{QPP_TOL['rtol']} atol {QPP_TOL['atol']} (RSD, snqc rtol "
+            f"{SUM_ORDER_TOL['rtol']} atol {SUM_ORDER_TOL['atol']}; max abs diff {qpp_diff:.3g})")
+        out["qpp"] = {"qpp_dir_s": stage_s, "runtensor_ms": qpp_ms, "max_abs_diff": qpp_diff}
+        sub["[14c]"] = phase_done("[14c]", t0)
+
+        t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        rt_norm = RunTensor.from_trec_dir(root / "runs")
+        norm_load_s = time.perf_counter() - t1
+        fused, fusion_ms, write_ms = {}, {}, {}
+        for method in FUSION_METHODS + ("combsum@default",):
+            name, k_out = method.split("@")[0], (None if "@" in method else TOP_K)
+            g, fusion_ms[method] = timed_call(lambda: run_fusion(
+                name, rt_norm, qpp_data, k_out=k_out, device=dev))
+            if k_out:
+                _, write_ms[method] = timed_call(lambda: run_fusion(
+                    name, rt_norm, qpp_data, k_out=k_out, device=dev,
+                    output_path=root / "fused" / f"{name}.res"))
+            want_k = k_out or min(rt_norm.R * rt_norm.K, 512)
+            n_pad = check_fused(g, q, want_k, method)
+            c = run_fusion(name, rt_norm, qpp_data, k_out=k_out, device="cpu")
+            n_diff = fused_close(g, c, f"{method}: card vs CPU")
+            log(f"  {method}: [1, {q}, {want_k}] in {fusion_ms[method]:.3f} ms"
+                + (f" ({write_ms[method]:.3f} ms with the TREC write)" if k_out else "")
+                + f", {n_pad} padded slots; card = CPU ({n_diff} rows reordered inside "
+                  f"near-ties)")
+            fused[method] = g
+        if sorted(p.name for p in (root / "fused").iterdir()) != sorted(
+                f"{m}.res" for m in FUSION_METHODS):
+            raise AssertionError("run_fusion's output files are missing")
+        log(f"[14d] fusion over the .norm.res runs (loaded once, from_trec_dir "
+            f"{norm_load_s:.3f} s host): {len(fused)} runs checked ({smi})")
+        out["fusion"] = {"from_trec_dir_norm_s": norm_load_s, "ms": fusion_ms,
+                         "ms_with_write": write_ms}
+        sub["[14d]"] = phase_done("[14d]", t0)
+
+        t0 = time.perf_counter()
+        ev, ev_cpu = IREvaluator(device=dev), IREvaluator(device="cpu")
+        runs = {name: (rt_norm, name) for name in OFFLINE_VIEWS}
+        runs.update({m: (fused[m], 0) for m in FUSION_METHODS})
+        table = {}
+        for name, (run, r) in runs.items():
+            g, c = ev.evaluate(run, qrels, retriever=r), ev_cpu.evaluate(run, qrels, retriever=r)
+            bad = [m for m in g if abs(g[m] - c[m]) > METRIC_ATOL or not 0 < g[m] < 1]
+            if bad or list(g) != ev.metric_names:
+                raise AssertionError(f"{name}: metrics {bad} differ from the CPU copy by more "
+                                     f"than {METRIC_ATOL} or lie outside (0, 1): {g} vs {c}")
+            table[name] = g
+        _, eval_ms = timed_call(lambda: ev.evaluate(fused["combsum"], qrels))
+        oracle = oracle_report(rt_norm, qrels, device=dev)
+        if not (oracle["oracle_metric"] >= oracle["best_single"] > 0
+                and sum(oracle["selection_histogram"].values()) == q):
+            raise AssertionError(f"oracle_report: {oracle['oracle_metric']}, "
+                                 f"{oracle['best_single']}, {oracle['selection_histogram']}")
+        n_tr = int(0.8 * q)
+        pf = probfuse_experiment(rt_norm, qrels, rt_norm.qids[:n_tr], rt_norm.qids[n_tr:],
+                                 device=dev)
+        am = argmax_qpp_experiment(rt_norm, qpp_data, qrels, device=dev)
+        if not 0 < pf["nDCG@10"] < 1 or len(am) != 13 or any(
+                sum(v["histogram"].values()) != q for v in am.values()):
+            raise AssertionError(f"probfuse {pf['nDCG@10']} or argmax-QPP {am}")
+        best_col = max(am, key=lambda k: am[k]["nDCG@10"])
+        log(f"[14e] evaluation: {len(ev.metric_names)} metrics x {len(runs)} runs on the card, "
+            f"each aggregate equal to a CPU copy within {METRIC_ATOL}; one "
+            f"IREvaluator.evaluate {eval_ms:.3f} ms. nDCG@10 by run ({smi}):")
+        for name, g in table.items():
+            log(f"    {name:12s} {g['nDCG@10']:.6f}")
+        log(f"    {'oracle':12s} {oracle['oracle_metric']:.6f} (best single "
+            f"{oracle['best_single']:.6f}; selections {oracle['selection_histogram']})")
+        log(f"    {'probfuse':12s} {pf['nDCG@10']:.6f} (train {n_tr} queries, test {q - n_tr})")
+        log(f"    argmax-QPP, best column {best_col} {am[best_col]['nDCG@10']:.6f} "
+            f"({am[best_col]['histogram']}); RSD {am['RSD']['nDCG@10']:.6f}")
+        out["evaluation"] = {"evaluate_ms": eval_ms,
+                             "ndcg10": {k: v["nDCG@10"] for k, v in table.items()},
+                             "oracle": oracle["oracle_metric"], "probfuse": pf["nDCG@10"],
+                             "argmax_best": [best_col, am[best_col]["nDCG@10"]]}
+        sub["[14e]"] = phase_done("[14e]", t0)
+
+        t0 = time.perf_counter()
+        res = train_fusion_models(rt_norm, qpp_data, qrels, model_types=("per_retriever", "mlp"),
+                                  output_dir=root / "models", device=dev)
+        train_s = time.perf_counter() - t0
+        path = res["mlp"]["path"]
+        g, learned_ms = timed_call(lambda: run_fusion("learned", rt_norm, qpp_data,
+                                                      model_path=path, k_out=TOP_K, device=dev))
+        check_fused(g, q, TOP_K, "learned")
+        c = run_fusion("learned", rt_norm, qpp_data, model_path=path, k_out=TOP_K, device="cpu")
+        n_diff = fused_close(g, c, "learned: card vs CPU")
+        base = res["_baselines"]
+        log(f"[14f] stage 04: train_fusion_models (per_retriever, mlp) {train_s:.3f} s on "
+            f"{base['n_train']} / {base['n_test']} queries; fused nDCG@10 on the test slice: "
+            f"uniform {base['uniform']:.6f}, oracle {base['oracle']:.6f}, per_retriever "
+            f"{res['per_retriever']['fused_nDCG@10']:.6f}, mlp {res['mlp']['fused_nDCG@10']:.6f} "
+            f"({res['mlp']['train_info']['epochs_run']} epochs); run_fusion('learned', "
+            f"fusion_mlp.pkl) {learned_ms:.3f} ms, card = CPU ({n_diff} rows reordered inside "
+            f"near-ties) ({smi})")
+        out["train"] = {"s": train_s, "learned_ms": learned_ms,
+                        "baselines": {k: base[k] for k in ("uniform", "oracle")},
+                        "fused_ndcg10": {m: res[m]["fused_nDCG@10"]
+                                         for m in ("per_retriever", "mlp")}}
+        sub["[14f]"] = phase_done("[14f]", t0)
+    out["launches_after_14a"] = dict(LAUNCHES)
+    out["sub_s"] = sub
+    log(f"  launches in [14b-f] {dict(LAUNCHES)} (no kernel: the offline stages are torch "
+        "ops, as JAX's are plain XLA)")
+    return out
+
+
 def main() -> None:
     if not (ROOT / "qpp_fusion_rag_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py: no qpp_fusion_rag_tpu_torch package beside "
@@ -1828,6 +2191,12 @@ def main() -> None:
                                     view_proj, smi, dev)
     phase_s["[13] training and the fusion models"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    log(f"[14] offline research path: the five ensemble views of the {len(batches)} batches "
+        f"as runs, stage files, QPP stage, fusion, evaluation, stage 04")
+    offline = offline_research_path(idx, batches, smi, DEVICE)
+    phase_s["[14] offline research path"] = time.perf_counter() - t0
+
     src = "qpp_fusion_rag_tpu_torch/csrc/"
     tpu = "qpp_fusion_rag_tpu/ops/pallas/"
     # kernel -> (source, TPU kernel it replaces, its main path)
@@ -1870,6 +2239,7 @@ def main() -> None:
         f"{ix_res['lazy_s']}; search_certified {ix_res['certified']}; autotune_sparse "
         f"{ix_res['autotune']}")
     log(f"  training and the fusion models ({smi}): {json.dumps(train_res)}")
+    log(f"  offline research path ({smi}): {json.dumps(offline)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}),

@@ -5,16 +5,20 @@
   segment  -- the segmented-aggregation primitive
   fusion   -- CombSUM / CombMNZ / RRF (+ weighted) fusion
   qpp      -- the 13 QPP statistics as one reduction
+  metrics  -- IR metrics (nDCG / RR / R / P / AP) as batched reductions
   trees    -- GBDT ensembles as node-array traversal
   kernels/ -- the hand-written CUDA kernels and their plain versions
 
-The re-exports are JAX's, except ops/metrics.py's names
-(align_relevance, compute_measures, aggregate_measures), which come with
-that module (ROADMAP Queue 1 item 5).
+The re-exports are JAX's.
 """
 
 from qpp_fusion_rag_tpu_torch.ops.dense import dense_topk, merge_topk, multi_view_topk
 from qpp_fusion_rag_tpu_torch.ops.fusion import fuse, fuse_kernel
+from qpp_fusion_rag_tpu_torch.ops.metrics import (
+    aggregate_measures,
+    align_relevance,
+    compute_measures,
+)
 from qpp_fusion_rag_tpu_torch.ops.qpp import normalize_qpp, qpp_kernel, text_features_batch
 from qpp_fusion_rag_tpu_torch.ops.segment import segmented_topk
 from qpp_fusion_rag_tpu_torch.ops.sparse import sparse_rescore_topk, sparse_score_topk
@@ -23,6 +27,7 @@ from qpp_fusion_rag_tpu_torch.ops.trees import TreeEnsemble, predict_ensemble, s
 __all__ = [
     "dense_topk", "multi_view_topk", "merge_topk",
     "fuse", "fuse_kernel",
+    "align_relevance", "compute_measures", "aggregate_measures",
     "qpp_kernel", "normalize_qpp", "text_features_batch",
     "segmented_topk", "sparse_score_topk", "sparse_rescore_topk",
     "TreeEnsemble", "predict_ensemble", "stack_trees",

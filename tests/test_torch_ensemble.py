@@ -342,6 +342,63 @@ print("isolated ok")
     assert "isolated ok" in r.stdout
 
 
+def test_offline_path_runs_without_jax_yaml_pandas_or_reference(tmp_path):
+    """A subprocess in which jax, yaml, pandas and the JAX package cannot be
+    imported writes and reads run files, computes the QPP stage, fuses with
+    run_fusion, evaluates with IREvaluator and trains the per-retriever GBDT
+    with train_fusion_models, all on the CPU."""
+    script = tmp_path / "isolated_offline.py"
+    script.write_text(f"""
+import sys
+for name in ("jax", "jaxlib", "yaml", "pandas", "qpp_fusion_rag_tpu"):
+    sys.modules[name] = None
+sys.path.insert(0, {str(REPO)!r})
+import numpy as np
+from qpp_fusion_rag_tpu_torch.data import RunTensor, load_qrels
+from qpp_fusion_rag_tpu_torch.evaluation import IREvaluator
+from qpp_fusion_rag_tpu_torch.fusion import run_fusion
+from qpp_fusion_rag_tpu_torch.qpp import compute_qpp_dir
+from qpp_fusion_rag_tpu_torch.data.loaders import load_qpp_scores
+from qpp_fusion_rag_tpu_torch.train import train_fusion_models
+rng = np.random.default_rng(0)
+R, Q, K = 3, 40, 20
+runs = {{f"r{{r}}": {{f"test{{q}}": [(f"d{{d}}", float(s), i + 1) for i, (d, s) in enumerate(
+    zip(rng.choice(300, K, replace=False), np.sort(rng.uniform(0, 9, K))[::-1]))]
+    for q in range(Q)}} for r in range(R)}}
+rt = RunTensor.from_run_dicts(runs)
+for r, name in enumerate(rt.retrievers):
+    rt.write_trec(r, "runs/" + name + ".res")
+    rt.minmax_normalized().write_trec(r, "runs/" + name + ".norm.res")
+with open("qrels.tsv", "w") as f:
+    for q in range(Q):
+        for d in rng.choice(300, 3, replace=False):
+            f.write(f"test{{q}}\\td{{d}}\\t{{int(rng.integers(1, 3))}}\\n")
+qrels = load_qrels("qrels.tsv")
+assert len(compute_qpp_dir("runs", "qpp", device="cpu")) == R
+qpp = load_qpp_scores("qpp")
+fused = run_fusion("wcombsum", "runs", "qpp", k_out=30, device="cpu")
+assert fused.doc_ids.shape == (1, Q, 30)
+metrics = IREvaluator(device="cpu").evaluate(fused, qrels)
+assert 0 < metrics["nDCG@10"] < 1 and len(metrics) == 10
+out = train_fusion_models(RunTensor.from_trec_dir("runs"), qpp, qrels,
+                          model_types=("per_retriever",), output_dir=".", device="cpu")
+assert set(out) == {{"_baselines", "per_retriever"}}
+learned = run_fusion("learned", "runs", qpp, model_path="fusion_per_retriever.pkl",
+                     device="cpu")
+assert learned.retrievers == ["learned"]
+assert not any(m == "jax" or m.startswith(("jax.", "yaml", "pandas", "qpp_fusion_rag_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("isolated ok")
+""")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.pop("QPP_CONFIG", None)
+    r = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                       env=env, timeout=300, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "isolated ok" in r.stdout
+
+
 # ------------------------------------------------------------ q8r ---------
 
 RS_KW = dict(k=K, k_out=K, sparse_mode="q8r", dense_rescore_pool=POOL,

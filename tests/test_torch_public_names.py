@@ -125,3 +125,27 @@ def test_exact_sparse_scores_host_equals_jax():
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
     assert (got[1][5] == -1).all() and (got[1][0] >= 0).all()
+
+
+@pytest.mark.parametrize("package", ["data", "evaluation", "fusion", "train", "qpp", "ops"])
+def test_packages_export_jax_names(package):
+    """Each package of the offline path (and ops, with the metrics names)
+    exports JAX's names: __all__ equal where JAX has one, else the same
+    public names; each name is the port's own object of the same name."""
+    import importlib
+    import types
+
+    j = importlib.import_module(f"qpp_fusion_rag_tpu.{package}")
+    t = importlib.import_module(f"qpp_fusion_rag_tpu_torch.{package}")
+
+    def public(mod):
+        return sorted(n for n, v in vars(mod).items()
+                      if not n.startswith("_") and not isinstance(v, types.ModuleType))
+
+    names = getattr(j, "__all__", None) or public(j)
+    assert (t.__all__ if hasattr(j, "__all__") else public(t)) == names
+    for name in names:
+        obj = getattr(t, name)
+        assert getattr(obj, "__module__", "").startswith("qpp_fusion_rag_tpu_torch") or \
+            not callable(obj), name
+        assert getattr(obj, "__name__", name) == getattr(getattr(j, name), "__name__", name)

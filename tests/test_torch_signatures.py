@@ -95,6 +95,69 @@ def _names(fn):
     return list(inspect.signature(fn).parameters)
 
 
+def _pairs(module, names):
+    """(JAX function, port function) for each dotted name of `module`."""
+    from operator import attrgetter
+
+    j = importlib.import_module(f"qpp_fusion_rag_tpu.{module}")
+    t = importlib.import_module(f"qpp_fusion_rag_tpu_torch.{module}")
+    return [(attrgetter(n)(j), attrgetter(n)(t)) for n in names]
+
+
+# The offline research path: the data layer, the IR metrics, evaluation,
+# the QPP stage, fusion and the trainer. The port adds at most `device`.
+OFFLINE_PATH = (
+    _pairs("data.vocab", ["DocVocab.__init__", "DocVocab.add", "DocVocab.encode",
+                          "DocVocab.decode", "DocVocab.id_of", "DocVocab.docno_of",
+                          "DocVocab.docnos", "DocVocab.save", "DocVocab.load"])
+    + _pairs("data.loaders", [
+        "LazyCorpus.__init__", "LazyCorpus.doc_ids", "LazyCorpus.get", "LazyCorpus.get_text",
+        "LazyCorpus.get_many", "load_corpus", "iter_corpus", "load_queries", "load_qrels",
+        "load_run_file", "load_run_pairs", "load_run_as_dict", "load_qpp_file",
+        "load_qpp_scores", "write_qpp_file", "load_gold_answers", "get_gold_answer_for_query"])
+    + _pairs("data.runtensor", [
+        "RunTensor.from_run_dicts", "RunTensor.from_trec_dir", "RunTensor.from_arrays",
+        "RunTensor.minmax_normalized", "RunTensor.select_retrievers",
+        "RunTensor.select_queries", "RunTensor.truncate", "RunTensor.to_run_dict",
+        "RunTensor.write_trec", "load_runs_dir"])
+    + _pairs("ops.metrics", [
+        "align_relevance", "_discounts", "ndcg_at", "rr_at", "recall_at", "precision_at",
+        "average_precision", "parse_measure", "compute_measures", "aggregate_measures",
+        "compute_ndcg"])
+    + _pairs("evaluation.ir_evaluator", [
+        "_run_dict_to_tensor", "IREvaluator.__init__", "IREvaluator.evaluate",
+        "IREvaluator.evaluate_multiple", "IREvaluator.evaluate_runtensor", "_ideal_depth",
+        "per_query_metric"])
+    + _pairs("evaluation.base", ["get_task_type", "FactVerificationGoldLabel.normalize_label"])
+    + _pairs("evaluation.qa_evaluator", [
+        "normalize_answer", "exact_match", "token_f1", "_lcs_len", "rouge_l", "containment",
+        "QAEvaluator.evaluate_single", "QAEvaluator.evaluate_batch", "QAEvaluator.aggregate",
+        "compute_qa_metrics_batch"])
+    + _pairs("evaluation.fact_verification", ["FactVerificationEvaluator.evaluate",
+                                              "parse_verdict"])
+    + _pairs("evaluation.fairness", [
+        "awrf", "NoTieBreaker.evaluate", "NoisePerturbationTieBreaker.__init__",
+        "NoisePerturbationTieBreaker.evaluate", "SampledPermAggrTieBreaker.__init__",
+        "SampledPermAggrTieBreaker.evaluate", "PreEvaluatedResults.__init__",
+        "PreEvaluatedResults.compute"])
+    + _pairs("evaluation.benchmark", ["published_for"])
+    + _pairs("qpp.engine", ["compute_qpp", "compute_qpp_for_res_file",
+                            "compute_qpp_for_runtensor", "qpp_tensor_to_dict",
+                            "compute_qpp_dir", "_self_test"])
+    + _pairs("fusion.engine", [
+        "get_qpp_weight", "weights_from_qpp", "_fused_to_runtensor", "_k_out", "combsum",
+        "combmnz", "rrf", "weighted_combsum", "weighted_combmnz", "weighted_rrf",
+        "learned_fusion", "run_fusion"])
+    + _pairs("fusion.oracle", ["oracle_selection", "oracle_run", "oracle_report"])
+    + _pairs("fusion.probfuse", ["_segment_index", "ProbFuse.__init__", "ProbFuse.train",
+                                 "ProbFuse.fuse", "probfuse_experiment"])
+    + _pairs("fusion.argmax_qpp", ["qpp_index_names", "argmax_qpp_run",
+                                   "argmax_qpp_experiment"])
+    + _pairs("train.fusion_trainer", ["build_training_data", "evaluate_weights",
+                                      "train_fusion_models"])
+)
+
+
 @pytest.mark.parametrize("jax_fn,port_fn", [
     (JD.dense_topk, TD.dense_topk),
     (JD.multi_view_topk, TD.multi_view_topk),
@@ -194,7 +257,7 @@ def _names(fn):
     (JMI.ReferenceMLPFusion._filter, TMI.ReferenceMLPFusion._filter),
     (JMI.ReferenceMLPFusion.predict, TMI.ReferenceMLPFusion.predict),
     (JMI.load_reference_fusion_model, TMI.load_reference_fusion_model),
-], ids=lambda f: getattr(f, "__qualname__", None))
+] + OFFLINE_PATH, ids=lambda f: getattr(f, "__qualname__", None))
 def test_port_takes_jax_parameters_in_jax_order(jax_fn, port_fn):
     j = [PORT_NAME.get(n, n) for n in _names(jax_fn)]
     t = _names(port_fn)
@@ -204,6 +267,18 @@ def test_port_takes_jax_parameters_in_jax_order(jax_fn, port_fn):
         if jp[name].default is not inspect.Parameter.empty:
             want = PORT_DEFAULT.get(jp[name].default, jp[name].default)
             assert tp[PORT_NAME.get(name, name)].default == want, name
+
+
+@pytest.mark.parametrize("jax_fn,port_fn", OFFLINE_PATH,
+                         ids=lambda f: getattr(f, "__qualname__", None))
+def test_offline_path_adds_at_most_device(jax_fn, port_fn):
+    """The offline path's functions take JAX's parameters and at most
+    `device` after them (default None: the card); the weighted fusion
+    methods take it through their **kw."""
+    j, t = _names(jax_fn), _names(port_fn)
+    assert t in (j, j + ["device"])
+    if t != j:
+        assert inspect.signature(port_fn).parameters["device"].default is None
 
 
 # ------------------------------------------------------------- dense ------
@@ -607,11 +682,9 @@ def test_segmented_topk_takes_jax_exact_topk_keyword(count_bonus):
 
 def test_records_and_exports_match_jax():
     """The NamedTuple records have JAX's fields in JAX's order, and the
-    ops package re-exports JAX's names that exist in the port (the metrics
-    names wait for ops/metrics.py)."""
+    ops package re-exports JAX's names, the metrics names included."""
     assert TT.TreeEnsemble._fields == JT.TreeEnsemble._fields
     assert TENG.TrainState._fields == JENG.TrainState._fields
-    metrics = {"align_relevance", "compute_measures", "aggregate_measures"}
-    assert TOPS.__all__ == [n for n in JOPS.__all__ if n not in metrics]
+    assert TOPS.__all__ == JOPS.__all__
     for name in TOPS.__all__:
         assert getattr(TOPS, name).__name__ == getattr(JOPS, name).__name__
