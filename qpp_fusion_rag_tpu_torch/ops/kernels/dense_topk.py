@@ -46,11 +46,15 @@ from __future__ import annotations
 
 import torch
 
+from qpp_fusion_rag_tpu_torch import tracing as T
 from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES, _build
 from qpp_fusion_rag_tpu_torch.ops.segment import topk_first
 
 GROUP = 128          # docs per emitted candidate
 NEG_FINITE = -3.0e38  # packed pad-doc score: finite, so lane bits never make a NaN
+# (group max, merge) span names: the dense view's, and the flagship's retrieval
+DENSE_SPANS = ("dense.group_max", "dense.merge")
+RETRIEVE_SPANS = ("retrieve.group_max", "retrieve.merge")
 INT8_PAD = -(1 << 24)  # K9 pad score: below any |dot| < 2^24, shifts to INT32_MIN
 PLAIN_CHUNK = 131_072  # docs per plain-version matmul (bounds its memory)
 
@@ -388,13 +392,20 @@ def pallas_dense_topk_int8(queries: torch.Tensor, corpus_rows: torch.Tensor,
     row). The corpus is int8 rows [N, D] with scales [N]; the result is
     JAX's with exact_merge=True, whatever tm, tn and exact_merge say."""
     del tm, tn, exact_merge
-    q_int, q_scale = quantize_rows(queries.to(torch.float32))
-    vals = group_max_packed_int8(q_int, corpus_rows, d_scale)
-    tv, tx = topk_first(vals, min(k, vals.shape[-1]))
-    clean, lane = unpack_lane(tv)
-    top_ids = tx.to(torch.int32) * GROUP + lane
-    top_vals = torch.where(clean > NEG_FINITE / 2, clean * q_scale, float("-inf"))
-    return _pad_k(top_vals, top_ids, k)
+    return _topk_int8(queries, corpus_rows, d_scale, k, DENSE_SPANS)
+
+
+def _topk_int8(queries, corpus_rows, d_scale, k, spans):
+    """pallas_dense_topk_int8, its two halves in the spans `spans`."""
+    with T.span(spans[0]):
+        q_int, q_scale = quantize_rows(queries.to(torch.float32))
+        vals = group_max_packed_int8(q_int, corpus_rows, d_scale)
+    with T.span(spans[1]):
+        tv, tx = topk_first(vals, min(k, vals.shape[-1]))
+        clean, lane = unpack_lane(tv)
+        top_ids = tx.to(torch.int32) * GROUP + lane
+        top_vals = torch.where(clean > NEG_FINITE / 2, clean * q_scale, float("-inf"))
+        return _pad_k(top_vals, top_ids, k)
 
 
 def pallas_dense_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int = 100,
@@ -408,6 +419,11 @@ def pallas_dense_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int = 100,
     at `stride`, grouped by the tn tile. The merge is always exact, so
     `exact_merge` changes nothing; nor does tm."""
     del tm, exact_merge
+    return _topk_bf16(queries, corpus, k, tn, stride, packed, transposed, DENSE_SPANS)
+
+
+def _topk_bf16(queries, corpus, k, tn, stride, packed, transposed, spans):
+    """pallas_dense_topk, its two halves in the spans `spans`."""
     if packed and stride != 1:
         raise ValueError("packed=True supports stride=1 only; pass packed=False "
                          "for stride coarsening")
@@ -416,18 +432,22 @@ def pallas_dense_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int = 100,
     if corpus.dtype != torch.bfloat16:
         raise ValueError(f"the fused dense kernels take a bf16 corpus, got {corpus.dtype}; "
                          "ops.dense.dense_topk serves other dtypes")
-    q = queries.to(torch.bfloat16).contiguous()
-    if packed:
-        vals = group_max_packed(q, corpus, transposed=transposed)
-        tv, tx = topk_first(vals, min(k, vals.shape[-1]))
-        clean, lane = unpack_lane(tv)
-        top_ids = tx.to(torch.int32) * GROUP + lane
-        top_vals = torch.where(clean > NEG_FINITE / 2, clean, float("-inf"))
-    else:
-        vals, ids = group_max_scores(q, corpus, stride=stride, tn=tn)
-        top_vals, tx = topk_first(vals, min(k, vals.shape[-1]))
-        top_ids = torch.gather(ids, -1, tx)
-    return _pad_k(top_vals, top_ids, k)
+    with T.span(spans[0]):
+        q = queries.to(torch.bfloat16).contiguous()
+        if packed:
+            vals = group_max_packed(q, corpus, transposed=transposed)
+        else:
+            vals, ids = group_max_scores(q, corpus, stride=stride, tn=tn)
+    with T.span(spans[1]):
+        if packed:
+            tv, tx = topk_first(vals, min(k, vals.shape[-1]))
+            clean, lane = unpack_lane(tv)
+            top_ids = tx.to(torch.int32) * GROUP + lane
+            top_vals = torch.where(clean > NEG_FINITE / 2, clean, float("-inf"))
+        else:
+            top_vals, tx = topk_first(vals, min(k, vals.shape[-1]))
+            top_ids = torch.gather(ids, -1, tx)
+        return _pad_k(top_vals, top_ids, k)
 
 
 def pallas_dense_topk_int8_global(queries: torch.Tensor, corpus_rows: torch.Tensor,
@@ -467,11 +487,12 @@ def pallas_multi_view_topk(queries: torch.Tensor, view_proj: torch.Tensor,
     round to bf16 inside pallas_dense_topk, which gets the other parameters
     as JAX forwards them. The corpus is bf16 [N, Dv], or [Dv, N] with
     transposed=True. -> (scores [R, B, k], ids [R, B, k])."""
-    qv = _project(queries, view_proj)
+    del tm, exact_merge
+    with T.span("retrieve.project"):
+        qv = _project(queries, view_proj)
     R, B, Dv = qv.shape
-    vals, ids = pallas_dense_topk(qv.reshape(R * B, Dv), corpus, k=k, tm=tm, tn=tn,
-                                  exact_merge=exact_merge, stride=stride,
-                                  transposed=transposed)
+    vals, ids = _topk_bf16(qv.reshape(R * B, Dv), corpus, k, tn, stride, True, transposed,
+                           RETRIEVE_SPANS)
     return vals.reshape(R, B, k), ids.reshape(R, B, k)
 
 
@@ -481,8 +502,9 @@ def pallas_multi_view_topk_int8(queries: torch.Tensor, view_proj: torch.Tensor,
                                 exact_merge: bool = False):
     """R-view quantized dense top-k on K1 over int8 rows [N, Dv] and
     per-doc scales [N]. -> (scores [R, B, k], ids [R, B, k])."""
-    qv = _project(queries, view_proj)
+    del tm, tn, exact_merge
+    with T.span("retrieve.project"):
+        qv = _project(queries, view_proj)
     R, B, Dv = qv.shape
-    vals, ids = pallas_dense_topk_int8(qv.reshape(R * B, Dv), corpus_rows, d_scale, k=k,
-                                       tm=tm, tn=tn, exact_merge=exact_merge)
+    vals, ids = _topk_int8(qv.reshape(R * B, Dv), corpus_rows, d_scale, k, RETRIEVE_SPANS)
     return vals.reshape(R, B, k), ids.reshape(R, B, k)

@@ -44,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qpp_fusion_rag_tpu_torch import tracing as T
 from qpp_fusion_rag_tpu_torch.ops.kernels.bitonic import (
     MAX_ROW,
     bitonic_segsum_rows,
@@ -177,9 +178,16 @@ def pack_postings_presorted(
 
 def _max_dual_window(offsets) -> int:
     """The longest dual window of a presorted layout's offsets (numpy or
-    torch; one reduction and one host read for a tensor)."""
+    torch; one reduction and one host read for a tensor, counted as the
+    sync "presorted_cap" for a CUDA tensor)."""
     if isinstance(offsets, torch.Tensor):
-        return int((offsets[1:] - offsets[:-1]).max()) if offsets.numel() > 1 else 0
+        if offsets.numel() <= 1:
+            return 0
+        widest = (offsets[1:] - offsets[:-1]).max()
+        if not widest.is_cuda:
+            return int(widest)
+        with T.host_sync("presorted_cap"):
+            return int(widest)
     off = np.asarray(offsets)
     return int(np.diff(off).max()) if off.size > 1 else 0
 
@@ -548,14 +556,15 @@ def _q8_keys(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
     imp = (win & 0xFF).to(torch.float32)
     prod = imp * ratio[..., None]      # one f32 rounding, then half-to-even
     q8 = torch.round(prod).to(torch.int32)
+    dev = packed.device     # each pad key: one 4-byte int32 host copy (np.int32), no cast
     if presorted:
         # descending (odd-slot) windows pad with INT32_MIN so every block
         # stays monotone for the skipped sort rounds
         padkey = torch.where(parity[..., None] == 1,
-                             torch.tensor(INT32_MIN, dtype=torch.int32, device=packed.device),
-                             torch.tensor(INT32_MAX, dtype=torch.int32, device=packed.device))
+                             T.to_device(np.int32(INT32_MIN), dev, None, "q8_pad"),
+                             T.to_device(np.int32(INT32_MAX), dev, None, "q8_pad"))
     else:
-        padkey = torch.tensor(INT32_MAX, dtype=torch.int32, device=packed.device)
+        padkey = T.to_device(np.int32(INT32_MAX), dev, None, "q8_pad")
     keys = torch.where(wanted, (win & ~0xFF) | q8, padkey)
 
     keys = keys.reshape(q_terms.shape[0], -1).contiguous()
@@ -601,15 +610,17 @@ def _q8_row_sums(packed, offsets, term_scales, q_terms, q_weights, p_cap: int,
     (bitonic_segsum_rows: the kernel for a CUDA tensor, its plain version
     for a CPU one), longer rows to _sort_row_sums, on either device. It is
     not a fallback: a CUDA row of <= 65,536 keys launches K2 or raises."""
-    keys, wmax_col, start_block, *win_min = _q8_keys(
-        packed, offsets, term_scales, q_terms, q_weights, p_cap, presorted,
-        return_win_min=return_win_min)
-    if keys.shape[1] <= MAX_ROW:
-        sums, sids = bitonic_segsum_rows(keys, start_block=start_block, plus_one=plus_one,
-                                         max_run=q_terms.shape[1])
-    else:
-        sums, sids = _sort_row_sums(keys, plus_one)
-    sums = torch.where(sids >= SID_INVALID, -1, sums)
+    with T.span("sparse.keys"):
+        keys, wmax_col, start_block, *win_min = _q8_keys(
+            packed, offsets, term_scales, q_terms, q_weights, p_cap, presorted,
+            return_win_min=return_win_min)
+    with T.span("sparse.row_sums"):
+        if keys.shape[1] <= MAX_ROW:
+            sums, sids = bitonic_segsum_rows(keys, start_block=start_block,
+                                             plus_one=plus_one, max_run=q_terms.shape[1])
+        else:
+            sums, sids = _sort_row_sums(keys, plus_one)
+        sums = torch.where(sids >= SID_INVALID, -1, sums)
     return (sums, sids, wmax_col, *win_min)
 
 
@@ -650,19 +661,20 @@ def sparse_score_topk_q8(
         presorted=presorted)
     M = sums.shape[1]
     kk = min(k, M)
-    if (exact_topk and kk < M and bitonic is not False
-            and _can_bitonic_pool(M, q_terms.shape[1])):
-        top_vals, top_ids, _ = _bitonic_pool(sums, sids, kk, wmax_col)
+    with T.span("sparse.topk"):
+        if (exact_topk and kk < M and bitonic is not False
+                and _can_bitonic_pool(M, q_terms.shape[1])):
+            top_vals, top_ids, _ = _bitonic_pool(sums, sids, kk, wmax_col)
+            ok = torch.isfinite(top_vals)
+            return (torch.where(ok, top_vals, float("-inf")),
+                    torch.where(ok, top_ids, -1))
+        scores = torch.where(sums >= 0, sums.to(torch.float32) * wmax_col,
+                             float("-inf"))
+        top_vals, top_idx = topk_first(scores, kk)
+        top_ids = torch.gather(sids, -1, top_idx)
         ok = torch.isfinite(top_vals)
         return (torch.where(ok, top_vals, float("-inf")),
                 torch.where(ok, top_ids, -1))
-    scores = torch.where(sums >= 0, sums.to(torch.float32) * wmax_col,
-                         float("-inf"))
-    top_vals, top_idx = topk_first(scores, kk)
-    top_ids = torch.gather(sids, -1, top_idx)
-    ok = torch.isfinite(top_vals)
-    return (torch.where(ok, top_vals, float("-inf")),
-            torch.where(ok, top_ids, -1))
 
 
 # =============================================================================
@@ -819,12 +831,13 @@ def sparse_score_topk_q8_rescored(
         packed, offsets, term_scales, q_terms, q_weights, p_cap, presorted=presorted)
     M = sums.shape[1]
     pool = min(candidates, M)
-    if pool < M and bitonic is not False and _can_bitonic_pool(M, q_terms.shape[1]):
-        cs, ci, _ = _bitonic_pool(sums, sids, pool, wmax_col)
-    else:
-        scores = torch.where(sums >= 0, sums.to(torch.float32) * wmax_col, float("-inf"))
-        cs, cidx = topk_first(scores, pool)
-        ci = torch.where(torch.isfinite(cs), torch.gather(sids, -1, cidx), -1)
+    with T.span("sparse.topk"):
+        if pool < M and bitonic is not False and _can_bitonic_pool(M, q_terms.shape[1]):
+            cs, ci, _ = _bitonic_pool(sums, sids, pool, wmax_col)
+        else:
+            scores = torch.where(sums >= 0, sums.to(torch.float32) * wmax_col, float("-inf"))
+            cs, cidx = topk_first(scores, pool)
+            ci = torch.where(torch.isfinite(cs), torch.gather(sids, -1, cidx), -1)
     return sparse_exact_rescore(cs, ci, doc_packed, doc_scale, q_terms, q_weights, k=k,
                                 imp_bits=imp_bits, sort_ids=sort_ids)
 
@@ -859,13 +872,15 @@ def certify(packed, offsets, term_scales, doc_packed, doc_scale, q_terms, q_weig
     # the pool by bound sums (q8sum + cnt): the (pool+1)-th bound bounds
     # every doc left outside
     pool = min(candidates, M)
-    if pool < M and bitonic is not False and _can_bitonic_pool(M, Tq):
-        _, ci, outside_ub = _bitonic_pool(sums, sids, pool, wmax_col)
-    else:
-        row_bounds = torch.where(sums >= 0, sums.to(torch.float32) * wmax_col, float("-inf"))
-        cv, cidx = topk_first(row_bounds, pool)
-        ci = torch.where(torch.isfinite(cv), torch.gather(sids, -1, cidx), -1)
-        outside_ub = row_bounds.scatter(1, cidx, float("-inf")).amax(dim=1)
+    with T.span("sparse.topk"):
+        if pool < M and bitonic is not False and _can_bitonic_pool(M, Tq):
+            _, ci, outside_ub = _bitonic_pool(sums, sids, pool, wmax_col)
+        else:
+            row_bounds = torch.where(sums >= 0, sums.to(torch.float32) * wmax_col,
+                                     float("-inf"))
+            cv, cidx = topk_first(row_bounds, pool)
+            ci = torch.where(torch.isfinite(cv), torch.gather(sids, -1, cidx), -1)
+            outside_ub = row_bounds.scatter(1, cidx, float("-inf")).amax(dim=1)
 
     # per-term window stats for the hidden-mass bound
     tq_valid = q_terms >= 0

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from qpp_fusion_rag_tpu_torch import tracing as T
 from qpp_fusion_rag_tpu_torch.models.mlp import init_mlp_params, mlp_apply, soft_cross_entropy
 from qpp_fusion_rag_tpu_torch.ops import dense as D
 from qpp_fusion_rag_tpu_torch.ops import fusion as F
@@ -39,10 +40,17 @@ from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import (
 )
 
 
+def _combine(ids, norm, weights, method: int = F.COMBSUM, k_out: int = 100):
+    """weight_and_fuse inside a fusion span that is already open."""
+    with T.span("fusion.combine"):
+        return F.fuse_kernel(ids, norm, weights, method=method, minmax_norm=False,
+                             k_out=k_out)
+
+
 def weight_and_fuse(ids, norm, weights, method: int = F.COMBSUM, k_out: int = 100):
     """Weighted segmented-aggregation fusion of already-normalized runs."""
-    return F.fuse_kernel(ids, norm, weights, method=method, minmax_norm=False,
-                         k_out=k_out)
+    with T.span("fusion"):
+        return _combine(ids, norm, weights, method=method, k_out=k_out)
 
 
 def qpp_from_runs(
@@ -55,46 +63,45 @@ def qpp_from_runs(
 ) -> torch.Tensor:
     """-> qpp [R, B, 13]: raw, in-batch min-max normalized, or normalized
     against frozen calibration `stats`."""
-    n_valid = (ids >= 0).sum(-1).to(torch.int32)
-    clean = torch.where(ids >= 0, vals, 0.0)
-    qpp = Q.qpp_kernel(clean, n_valid, text_feats, cutoff=cutoff)
-    if stats is not None:
-        return Q.normalize_qpp_with(qpp, stats)
-    if normalize:
-        qpp = Q.normalize_qpp_with(qpp, None)
-    return qpp
+    with T.span("qpp"):
+        n_valid = (ids >= 0).sum(-1).to(torch.int32)
+        clean = torch.where(ids >= 0, vals, 0.0)
+        qpp = Q.qpp_kernel(clean, n_valid, text_feats, cutoff=cutoff)
+        if stats is not None:
+            return Q.normalize_qpp_with(qpp, stats)
+        if normalize:
+            qpp = Q.normalize_qpp_with(qpp, None)
+        return qpp
 
 
 def _row_minmax_scores(vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Per-(retriever, query) min-max: the .norm.res contract."""
-    return F._row_minmax(vals, valid, fill=float("-inf"))
-
-
-def _f32_on(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, device=device).to(torch.float32)
+    with T.span("minmax"):
+        return F._row_minmax(vals, valid, fill=float("-inf"))
 
 
 def _retrieve(q_emb, view_proj, corpus, k, chunk, use_pallas, corpus_transposed,
               corpus_scale):
     """The three retrieval routes. -> (vals [R, B, k], ids [R, B, k])."""
-    if corpus_scale is not None:
-        Dv = view_proj.shape[-1]
-        N = corpus.shape[0]
-        if (corpus.dim() != 2 or corpus.shape[1] != Dv or corpus_transposed
-                or tuple(corpus_scale.shape) != (N,)):
-            raise ValueError(
-                f"the int8 route takes corpus rows [N, {Dv}] and scales [N]; got "
-                f"{tuple(corpus.shape)} and {tuple(corpus_scale.shape)} (a JAX "
-                "[Dv, N] + [1, N] corpus converts with "
-                "pipeline.interop.flagship_corpus_from_numpy)")
-        return pallas_multi_view_topk_int8(q_emb, view_proj, corpus,
-                                           corpus_scale.to(torch.float32), k=k)
-    if use_pallas:
-        return pallas_multi_view_topk(q_emb, view_proj, corpus, k=k,
-                                      transposed=corpus_transposed)
-    if corpus_transposed:
-        raise ValueError("transposed corpus requires use_pallas=True")
-    return D.multi_view_topk(q_emb, view_proj, corpus, k=k, chunk=chunk)
+    with T.span("flagship_retrieval"):
+        if corpus_scale is not None:
+            Dv = view_proj.shape[-1]
+            N = corpus.shape[0]
+            if (corpus.dim() != 2 or corpus.shape[1] != Dv or corpus_transposed
+                    or tuple(corpus_scale.shape) != (N,)):
+                raise ValueError(
+                    f"the int8 route takes corpus rows [N, {Dv}] and scales [N]; got "
+                    f"{tuple(corpus.shape)} and {tuple(corpus_scale.shape)} (a JAX "
+                    "[Dv, N] + [1, N] corpus converts with "
+                    "pipeline.interop.flagship_corpus_from_numpy)")
+            return pallas_multi_view_topk_int8(q_emb, view_proj, corpus,
+                                               corpus_scale.to(torch.float32), k=k)
+        if use_pallas:
+            return pallas_multi_view_topk(q_emb, view_proj, corpus, k=k,
+                                          transposed=corpus_transposed)
+        if corpus_transposed:
+            raise ValueError("transposed corpus requires use_pallas=True")
+        return D.multi_view_topk(q_emb, view_proj, corpus, k=k, chunk=chunk)
 
 
 def _retrieve_qpp_norm(q_emb, view_proj, corpus, text_feats, k, chunk, use_pallas,
@@ -102,13 +109,16 @@ def _retrieve_qpp_norm(q_emb, view_proj, corpus, text_feats, k, chunk, use_palla
     """Shared front half of both flagship steps: retrieval + QPP + the
     per-view min-max scores. -> (vals, ids, qpp, norm)."""
     dev = corpus.device
-    q_emb, view_proj = _f32_on(q_emb, dev), _f32_on(view_proj, dev)
+    q_emb = T.to_device(q_emb, dev, torch.float32, "q_emb")
+    view_proj = T.to_device(view_proj, dev, torch.float32, "view_proj")
     if corpus_scale is not None:
-        corpus_scale = torch.as_tensor(corpus_scale, device=dev)
+        corpus_scale = T.to_device(corpus_scale, dev, None, "corpus_scale")
     vals, ids = _retrieve(q_emb, view_proj, corpus, k, chunk, use_pallas,
                           corpus_transposed, corpus_scale)
-    stats = None if qpp_norm_stats is None else _f32_on(qpp_norm_stats, dev)
-    qpp = qpp_from_runs(vals, ids, _f32_on(text_feats, dev), stats=stats)
+    stats = (None if qpp_norm_stats is None
+             else T.to_device(qpp_norm_stats, dev, torch.float32, "qpp_norm_stats"))
+    qpp = qpp_from_runs(vals, ids, T.to_device(text_feats, dev, torch.float32, "text_feats"),
+                        stats=stats)
     return vals, ids, qpp, _row_minmax_scores(vals, ids >= 0)
 
 
@@ -130,13 +140,14 @@ def fused_retrieval_step(
     """One fused-retrieval forward step -> (fused_ids [B, k_out],
     fused_scores [B, k_out], qpp [R, B, 13]), weighted by QPP column
     `qpp_index`."""
-    _, ids, qpp, norm = _retrieve_qpp_norm(
-        q_emb, view_proj, corpus, text_feats, k, chunk, use_pallas,
-        corpus_transposed=corpus_transposed, corpus_scale=corpus_scale,
-        qpp_norm_stats=qpp_norm_stats)
-    fused_ids, fused_scores = weight_and_fuse(ids, norm, qpp[..., qpp_index],
-                                              method=method, k_out=k_out)
-    return fused_ids, fused_scores, qpp
+    with T.span("flagship_step"):
+        _, ids, qpp, norm = _retrieve_qpp_norm(
+            q_emb, view_proj, corpus, text_feats, k, chunk, use_pallas,
+            corpus_transposed=corpus_transposed, corpus_scale=corpus_scale,
+            qpp_norm_stats=qpp_norm_stats)
+        fused_ids, fused_scores = weight_and_fuse(ids, norm, qpp[..., qpp_index],
+                                                  method=method, k_out=k_out)
+        return fused_ids, fused_scores, qpp
 
 
 def learned_weights(mlp_params, qpp: torch.Tensor) -> torch.Tensor:
@@ -162,13 +173,15 @@ def learned_fused_retrieval_step(
 ):
     """Learned-fusion forward: retrieval -> QPP features -> MLP softmax
     weights -> weighted CombSUM. -> (fused_ids, fused_scores, qpp)."""
-    _, ids, qpp, norm = _retrieve_qpp_norm(
-        q_emb, view_proj, corpus, text_feats, k, chunk, use_pallas,
-        corpus_transposed=corpus_transposed, corpus_scale=corpus_scale,
-        qpp_norm_stats=qpp_norm_stats)
-    fused_ids, fused_scores = weight_and_fuse(ids, norm, learned_weights(mlp_params, qpp),
-                                              k_out=k_out)
-    return fused_ids, fused_scores, qpp
+    with T.span("flagship_step"):
+        _, ids, qpp, norm = _retrieve_qpp_norm(
+            q_emb, view_proj, corpus, text_feats, k, chunk, use_pallas,
+            corpus_transposed=corpus_transposed, corpus_scale=corpus_scale,
+            qpp_norm_stats=qpp_norm_stats)
+        fused_ids, fused_scores = weight_and_fuse(ids, norm,
+                                                  learned_weights(mlp_params, qpp),
+                                                  k_out=k_out)
+        return fused_ids, fused_scores, qpp
 
 
 # =============================================================================
@@ -217,13 +230,16 @@ def learned_fusion_train_step(
     Inputs move to the corpus's device."""
     dev = corpus.device
     with torch.no_grad():
-        vals, ids = D.multi_view_topk(_f32_on(q_emb, dev), _f32_on(view_proj, dev), corpus,
-                                      k=k, chunk=chunk)
-        qpp = qpp_from_runs(vals, ids, _f32_on(text_feats, dev))
+        vals, ids = D.multi_view_topk(T.to_device(q_emb, dev, torch.float32, "q_emb"),
+                                      T.to_device(view_proj, dev, torch.float32, "view_proj"),
+                                      corpus, k=k, chunk=chunk)
+        qpp = qpp_from_runs(vals, ids, T.to_device(text_feats, dev, torch.float32,
+                                                   "text_feats"))
         R, B, M = qpp.shape
         feats = qpp.permute(1, 0, 2).reshape(B, R * M)
     opt.zero_grad(set_to_none=True)
-    loss = soft_cross_entropy(mlp_apply(state.params, feats), _f32_on(targets, dev))
+    loss = soft_cross_entropy(mlp_apply(state.params, feats),
+                              T.to_device(targets, dev, torch.float32, "targets"))
     loss.backward()
     opt.step()
     return state, loss.detach()

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from qpp_fusion_rag_tpu_torch import tracing as T
 from qpp_fusion_rag_tpu_torch.ops import fusion as F
 from qpp_fusion_rag_tpu_torch.ops.kernels.dense_topk import pallas_dense_topk_int8
 from qpp_fusion_rag_tpu_torch.ops.qpp import normalize_qpp_with
@@ -40,9 +41,9 @@ from qpp_fusion_rag_tpu_torch.ops.sparse import (
     validate_presorted_cap,
 )
 from qpp_fusion_rag_tpu_torch.pipeline.engine import (
+    _combine,
     learned_weights,
     qpp_from_runs,
-    weight_and_fuse,
 )
 
 class EnsembleIndexes(NamedTuple):
@@ -151,7 +152,8 @@ def dense_view_topk(q_emb: torch.Tensor, corpus_rows: torch.Tensor,
                     d_scale: torch.Tensor, k: int):
     """Dense view: int8 scores with the fused group max (K1), exact merge.
     -> (scores [B, k], ids [B, k])."""
-    return pallas_dense_topk_int8(q_emb, corpus_rows, d_scale, k=k)
+    with T.span("dense_view"):
+        return pallas_dense_topk_int8(q_emb, corpus_rows, d_scale, k=k)
 
 
 def score_candidates(
@@ -184,11 +186,12 @@ def rerank_candidates(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-stage rerank: gather candidate rows once for all stacked views,
     rescore, re-sort. -> (scores [..., B, K] desc, ids [..., B, K])."""
-    B, K = cand_ids.shape
-    safe = cand_ids.clamp_min(0).long()
-    cand = corpus_rows[safe.reshape(-1)].reshape(B, K, -1)
-    scale = d_scale[safe] if corpus_rows.dtype == torch.int8 else None
-    return score_candidates(q_vec, cand, cand_ids, scale)
+    with T.span("rerank"):
+        B, K = cand_ids.shape
+        safe = cand_ids.clamp_min(0).long()
+        cand = corpus_rows[safe.reshape(-1)].reshape(B, K, -1)
+        scale = d_scale[safe] if corpus_rows.dtype == torch.int8 else None
+        return score_candidates(q_vec, cand, cand_ids, scale)
 
 
 def dense_view_rescored(q_emb: torch.Tensor, corpus_rows: torch.Tensor,
@@ -214,9 +217,12 @@ def fuse_tail(
     """Per-view min-max (the .norm.res contract) + fusion weighted by one
     QPP column, or by a learned MLP's softmax over the [B, R*13] features
     (mlp_params: pipeline.interop.mlp_params_from_numpy)."""
-    norm = F._row_minmax(vals, ids >= 0, fill=float("-inf"))
-    weights = qpp[..., qpp_index] if mlp_params is None else learned_weights(mlp_params, qpp)
-    return weight_and_fuse(ids, norm, weights, method=method, k_out=k_out)
+    with T.span("fusion"):
+        with T.span("fusion.minmax"):
+            norm = F._row_minmax(vals, ids >= 0, fill=float("-inf"))
+        weights = (qpp[..., qpp_index] if mlp_params is None
+                   else learned_weights(mlp_params, qpp))
+        return _combine(ids, norm, weights, method=method, k_out=k_out)
 
 
 def resolve_doc_imp_bits(idx_bits, kw_bits, default: int = 8) -> int:
@@ -229,10 +235,6 @@ def resolve_doc_imp_bits(idx_bits, kw_bits, default: int = 8) -> int:
             f"doc_imp_bits={kw_bits} conflicts with the index's packed "
             f"doc vectors (built with imp_bits={idx_bits})")
     return idx_bits
-
-
-def _on(x, device, dtype):
-    return torch.as_tensor(x, device=device).to(dtype)
 
 
 def ensemble_retrieval_step(
@@ -271,46 +273,53 @@ def ensemble_retrieval_step(
     the check is cached per offsets tensor, so steady-state serving pays
     nothing. The rerank views and the dense pool gather idx.rerank_rows
     where given, else the int8 corpus_rows."""
-    imp_bits = resolve_doc_imp_bits(idx.doc_imp_bits, doc_imp_bits)
-    dev = idx.bm25_packed.device
-    if sparse_presorted:
-        validate_presorted_cap(idx.bm25_offsets, p_cap)
-        validate_presorted_cap(idx.splade_offsets, p_cap)
-    sparse = make_sparse_scorer(sparse_mode, sparse_candidates, k, p_cap,
-                                imp_bits=imp_bits, presorted=sparse_presorted,
-                                sort_ids=sparse_sort_ids)
-    certified = sparse_mode == "q8c"
-    tails = ({"tail": idx.bm25_tail}, {"tail": idx.splade_tail}) if certified else ({}, {})
-    bm25_out = sparse(idx.bm25_packed, idx.bm25_offsets, idx.bm25_scales,
-                      _on(bm25_terms, dev, torch.int32), _on(bm25_qw, dev, torch.float32),
-                      idx.bm25_doc_packed, idx.bm25_doc_scale, **tails[0])
-    splade_out = sparse(idx.splade_packed, idx.splade_offsets, idx.splade_scales,
-                        _on(splade_terms, dev, torch.int32),
-                        _on(splade_qw, dev, torch.float32),
-                        idx.splade_doc_packed, idx.splade_doc_scale, **tails[1])
-    bm25_s, bm25_i = bm25_out[:2]
-    splade_s, splade_i = splade_out[:2]
-    q_emb = _on(q_emb, dev, torch.float32)
-    rows = idx.corpus_rows if idx.rerank_rows is None else idx.rerank_rows
-    if dense_rescore_pool > 0:
-        dense_s, dense_i = dense_view_rescored(q_emb, idx.corpus_rows, idx.d_scale, rows,
-                                               k, dense_rescore_pool)
-    else:
-        dense_s, dense_i = dense_view_topk(q_emb, idx.corpus_rows, idx.d_scale, k)
-    qv = torch.einsum("bd,vdw->vbw", q_emb, _on(rerank_proj, dev, torch.float32))
-    rr_s, rr_i = rerank_candidates(qv, bm25_i, rows, idx.d_scale)
+    with T.span("ensemble_step"):
+        imp_bits = resolve_doc_imp_bits(idx.doc_imp_bits, doc_imp_bits)
+        dev = idx.bm25_packed.device
+        if sparse_presorted:
+            validate_presorted_cap(idx.bm25_offsets, p_cap)
+            validate_presorted_cap(idx.splade_offsets, p_cap)
+        sparse = make_sparse_scorer(sparse_mode, sparse_candidates, k, p_cap,
+                                    imp_bits=imp_bits, presorted=sparse_presorted,
+                                    sort_ids=sparse_sort_ids)
+        certified = sparse_mode == "q8c"
+        tails = ({"tail": idx.bm25_tail}, {"tail": idx.splade_tail}) if certified else ({}, {})
+        bm25_terms = T.to_device(bm25_terms, dev, torch.int32, "bm25_terms")
+        bm25_qw = T.to_device(bm25_qw, dev, torch.float32, "bm25_qw")
+        with T.span("sparse_view"):
+            bm25_out = sparse(idx.bm25_packed, idx.bm25_offsets, idx.bm25_scales, bm25_terms,
+                              bm25_qw, idx.bm25_doc_packed, idx.bm25_doc_scale, **tails[0])
+        splade_terms = T.to_device(splade_terms, dev, torch.int32, "splade_terms")
+        splade_qw = T.to_device(splade_qw, dev, torch.float32, "splade_qw")
+        with T.span("sparse_view"):
+            splade_out = sparse(idx.splade_packed, idx.splade_offsets, idx.splade_scales,
+                                splade_terms, splade_qw, idx.splade_doc_packed,
+                                idx.splade_doc_scale, **tails[1])
+        bm25_s, bm25_i = bm25_out[:2]
+        splade_s, splade_i = splade_out[:2]
+        q_emb = T.to_device(q_emb, dev, torch.float32, "q_emb")
+        rows = idx.corpus_rows if idx.rerank_rows is None else idx.rerank_rows
+        if dense_rescore_pool > 0:
+            dense_s, dense_i = dense_view_rescored(q_emb, idx.corpus_rows, idx.d_scale, rows,
+                                                   k, dense_rescore_pool)
+        else:
+            dense_s, dense_i = dense_view_topk(q_emb, idx.corpus_rows, idx.d_scale, k)
+        qv = torch.einsum("bd,vdw->vbw", q_emb,
+                          T.to_device(rerank_proj, dev, torch.float32, "rerank_proj"))
+        rr_s, rr_i = rerank_candidates(qv, bm25_i, rows, idx.d_scale)
 
-    vals = torch.stack([bm25_s, splade_s, dense_s, rr_s[0], rr_s[1]])  # [5, B, K]
-    ids = torch.stack([bm25_i, splade_i, dense_i, rr_i[0], rr_i[1]])
-    qpp_raw = qpp_from_runs(vals, ids, _on(text_feats, dev, torch.float32),
-                            normalize=False)
-    stats = None if qpp_norm_stats is None else _on(qpp_norm_stats, dev, torch.float32)
-    qpp = normalize_qpp_with(qpp_raw, stats)
-    fused_ids, fused_scores = fuse_tail(vals, ids, qpp, method, qpp_index,
-                                        k_out, mlp_params)
-    if certified:
-        # both sparse views proved their top-k; the dense and rerank views'
-        # int8 / bf16 precision is the engines' own, not part of the proof
-        return (fused_ids, fused_scores, qpp, bm25_out[2] & splade_out[2],
-                torch.minimum(bm25_out[3], splade_out[3]))
-    return fused_ids, fused_scores, qpp
+        vals = torch.stack([bm25_s, splade_s, dense_s, rr_s[0], rr_s[1]])  # [5, B, K]
+        ids = torch.stack([bm25_i, splade_i, dense_i, rr_i[0], rr_i[1]])
+        qpp_raw = qpp_from_runs(vals, ids, T.to_device(text_feats, dev, torch.float32,
+                                                       "text_feats"), normalize=False)
+        stats = (None if qpp_norm_stats is None
+                 else T.to_device(qpp_norm_stats, dev, torch.float32, "qpp_norm_stats"))
+        qpp = normalize_qpp_with(qpp_raw, stats)
+        fused_ids, fused_scores = fuse_tail(vals, ids, qpp, method, qpp_index,
+                                            k_out, mlp_params)
+        if certified:
+            # both sparse views proved their top-k; the dense and rerank views'
+            # int8 / bf16 precision is the engines' own, not part of the proof
+            return (fused_ids, fused_scores, qpp, bm25_out[2] & splade_out[2],
+                    torch.minimum(bm25_out[3], splade_out[3]))
+        return fused_ids, fused_scores, qpp
