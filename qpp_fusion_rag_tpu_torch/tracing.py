@@ -13,12 +13,18 @@ shared no-op context: the port has no other switch for tracing.
 Counters, always on (plain integer adds):
   LAUNCHES   kernel launches by kernel name; each wrapper under
              ``ops/kernels`` adds one where it launches its kernel;
-  SYNCS      blocking host <-> device moves by site;
-  H2D_BYTES  bytes those moves carried from host to device, by site.
+  STAGED     host -> CUDA moves by site that went through pinned
+             staging (``to_device``) and did not wait;
+  SYNCS      blocking host <-> device moves and reads by site;
+  H2D_BYTES  bytes the staged moves carried from host to device, by site.
 
-A blocking move runs inside span ``sync.<site>``, whose host duration is
-the time the host waited: a copy from host memory to a CUDA device with
-non_blocking=False waits for all work queued on the stream before it.
+A move from host memory to a CUDA device is copied on the host into a
+page-locked block of PyTorch's caching host allocator and sent with
+non_blocking=True on the current stream, so the host does not wait for
+the work queued before it; stream order keeps each consumer after its
+copy, and the allocator does not hand the block out again before the copy
+has landed. A blocking move or read runs inside span ``sync.<site>``,
+whose host duration is the time the host waited.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 
 LAUNCHES: Counter = Counter()
+STAGED: Counter = Counter()
 SYNCS: Counter = Counter()
 H2D_BYTES: Counter = Counter()
 
@@ -112,9 +119,17 @@ def host_sync(site: str):
 
 def blocking_move(x, device) -> bool:
     """True where ``torch.as_tensor(x, device=device)`` blocks the host:
-    x lies in host memory (a CPU tensor, a numpy array or a Python number)
-    and device is a CUDA device, so the copy is made with
-    non_blocking=False and waits for the stream."""
+    x is a tensor on a CUDA device and device is the CPU, so the copy waits
+    for the stream. A move from host memory to a CUDA device is staged
+    (staged_move) and does not block."""
+    return (isinstance(x, torch.Tensor) and x.device.type == "cuda"
+            and torch.device(device).type == "cpu")
+
+
+def staged_move(x, device) -> bool:
+    """True where to_device stages x through pinned memory: x lies in host
+    memory (a CPU tensor, a numpy array or a Python number) and device is a
+    CUDA device."""
     if torch.device(device).type != "cuda":
         return False
     return not isinstance(x, torch.Tensor) or x.device.type == "cpu"
@@ -122,14 +137,25 @@ def blocking_move(x, device) -> bool:
 
 def to_device(x, device, dtype: Optional[torch.dtype], site: str) -> torch.Tensor:
     """``torch.as_tensor(x, device=device)``, then ``.to(dtype)`` where
-    dtype is given. A blocking move (blocking_move) adds one to
-    SYNCS[site] and its bytes to H2D_BYTES[site], and runs inside span
-    ``sync.<site>``; any other move counts nothing."""
-    if blocking_move(x, device):
+    dtype is given. A staged move (staged_move) copies x into pinned host
+    memory and from there to the device with non_blocking=True, and adds
+    one to STAGED[site] and its bytes to H2D_BYTES[site]; x may be
+    overwritten as soon as this returns. A tensor that is pinned already is
+    sent as it is, and its owner keeps it unchanged until the stream has
+    passed the copy. A blocking move (blocking_move) adds one to
+    SYNCS[site] and runs inside span ``sync.<site>``; any other move
+    counts nothing."""
+    if staged_move(x, device):
+        t = torch.as_tensor(x)
+        if not t.is_pinned():
+            t = t.pin_memory()
+        t = t.to(device, non_blocking=True)
+        STAGED[site] += 1
+        H2D_BYTES[site] += t.numel() * t.element_size()
+    elif blocking_move(x, device):
         SYNCS[site] += 1
         with span(SYNC + site):
             t = torch.as_tensor(x, device=device)
-        H2D_BYTES[site] += t.numel() * t.element_size()
     else:
         t = torch.as_tensor(x, device=device)
     return t if dtype is None else t.to(dtype)

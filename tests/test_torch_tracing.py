@@ -1,8 +1,10 @@
 """The port's tracing module (qpp_fusion_rag_tpu_torch/tracing.py): spans
 only while torch.profiler records, their names and nesting in the two
 served steps as kept and as the profiler saw them, the counted moves, and
-the one launch counter. CPU tensors throughout: the moves' device decision
-is tested on its own, since a host -> CUDA move needs a card."""
+the one launch counter. CPU tensors, except in the tests marked cuda at
+the end, which skip without a card: there a host -> CUDA move is staged
+through pinned memory without a wait, and the steps' outputs are the same
+bits from host and from card inputs. The file imports no JAX."""
 
 from collections import Counter
 
@@ -22,36 +24,54 @@ N, D, R, B, K, CAP = 4096, 32, 5, 8, 16, 64
 STEP_SPANS = {"ensemble": "ensemble_step", "flagship": "flagship_step"}
 
 
-@pytest.fixture(scope="module")
-def steps():
-    """-> {"ensemble": step(), "flagship": step()}: the q8 ensemble step over
-    presorted BM25 / SPLADE postings (as the benchmark serves it) and the
-    flagship on its int8 route, each over host-tensor query inputs."""
+def _kit(device, routes=("int8",)):
+    """-> {kind: (step, inputs)}, step(*inputs) one served step with its
+    indexes and corpus on `device`: "ensemble", the q8 ensemble step over
+    presorted BM25 / SPLADE postings (as the benchmark serves it), and
+    "flagship" on the int8 route ("flagship.<route>" for each other route
+    of `routes`: bf16, plain). Query terms, weights and text features are
+    host tensors, as the benchmark hands them over; embeddings and
+    projections lie on `device`."""
     arrays, inputs = {}, []
     for name, vocab, avg, seed, tq in (("bm25", 1500, 30.0, 0, 8),
                                        ("splade", 1000, 40.0, 7, 16)):
         off, docs, w, _ = zipf_bm25_csr(N, vocab_size=vocab, avg_doc_len=avg, seed=seed)
         scales = SP.term_scales_from_csr(w, off)
         packed, off2, sc = SP.pack_postings_presorted(docs, w, off, cap=CAP, scales=scales)
-        arrays.update({f"{name}_packed": torch.from_numpy(packed),
-                       f"{name}_offsets": torch.from_numpy(off2.astype(np.int32)),
-                       f"{name}_scales": torch.from_numpy(sc)})
+        arrays.update({f"{name}_packed": torch.from_numpy(packed).to(device),
+                       f"{name}_offsets": torch.from_numpy(off2.astype(np.int32)).to(device),
+                       f"{name}_scales": torch.from_numpy(sc).to(device)})
         qt, qw = zipf_queries(off, B, n_terms=tq, seed=seed + 1)
         inputs += [torch.from_numpy(qt), torch.from_numpy(qw)]
     rng = np.random.default_rng(0)
-    rows, d_scale = quantize_rows(torch.from_numpy(rng.standard_normal((N, D), np.float32)))
-    idx = EM.EnsembleIndexes(corpus_rows=rows, d_scale=d_scale.reshape(-1), **arrays)
-    q = torch.from_numpy(rng.standard_normal((B, D), np.float32))
+    corpus = torch.from_numpy(rng.standard_normal((N, D), np.float32))
+    rows, d_scale = quantize_rows(corpus)
+    rows, d_scale = rows.to(device), d_scale.reshape(-1).to(device)
+    idx = EM.EnsembleIndexes(corpus_rows=rows, d_scale=d_scale, **arrays)
+    q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(device)
     rerank_proj = torch.from_numpy(rng.standard_normal((2, D, D), np.float32) * 0.05)
     view_proj = torch.from_numpy(rng.standard_normal((R, D, D), np.float32) * 0.05)
+    view_proj = view_proj.to(device)
     tf = torch.tensor([[6.0, 6.0, 9.0, 5.0]]).repeat(B, 1)
-    return {
-        "ensemble": lambda: EM.ensemble_retrieval_step(
-            idx, *inputs, q, rerank_proj, tf, k=K, k_out=K, p_cap=CAP, sparse_mode="q8",
-            sparse_presorted=True),
-        "flagship": lambda: EN.fused_retrieval_step(
-            q, view_proj, rows, tf, k=K, k_out=K, corpus_scale=d_scale.reshape(-1)),
-    }
+    kit = {"ensemble": (lambda *a: EM.ensemble_retrieval_step(
+        idx, *a, k=K, k_out=K, p_cap=CAP, sparse_mode="q8", sparse_presorted=True),
+        (*inputs, q, rerank_proj.to(device), tf))}
+    corpora = {"int8": (rows, {"corpus_scale": d_scale}),
+               "bf16": (corpus.to(torch.bfloat16).to(device), {"use_pallas": True}),
+               "plain": (corpus.to(device), {})}
+    for route in routes:
+        corpus_r, kw = corpora[route]
+        kit["flagship" if route == "int8" else f"flagship.{route}"] = (
+            lambda qe, text, corpus_r=corpus_r, kw=kw: EN.fused_retrieval_step(
+                qe, view_proj, corpus_r, text, k=K, k_out=K, **kw), (q, tf))
+    return kit
+
+
+@pytest.fixture(scope="module")
+def steps():
+    """-> {"ensemble": step(), "flagship": step()} on the CPU (_kit)."""
+    return {kind: (lambda fn=fn, inputs=inputs: fn(*inputs))
+            for kind, (fn, inputs) in _kit("cpu").items()}
 
 
 def _traced(step):
@@ -138,28 +158,91 @@ def test_outputs_bit_equal_with_tracing_on_and_off(steps, kind):
 
 
 def test_blocking_move_is_host_memory_to_a_cuda_device():
+    """Host memory to a CUDA device is a staged move, not a blocking one;
+    host memory to the CPU is neither."""
     for x in (torch.zeros(3), np.zeros(3, np.float32), 2.5, np.int32(7)):
-        assert T.blocking_move(x, "cuda")
-        assert T.blocking_move(x, torch.device("cuda", 0))
-        assert not T.blocking_move(x, "cpu")
-        assert not T.blocking_move(x, torch.device("cpu"))
+        for device in ("cuda", torch.device("cuda", 0)):
+            assert T.staged_move(x, device) and not T.blocking_move(x, device)
+        for device in ("cpu", torch.device("cpu")):
+            assert not T.staged_move(x, device) and not T.blocking_move(x, device)
+
+
+@pytest.mark.parametrize("device", ["cuda", torch.device("cuda", 0), "meta"])
+def test_a_device_tensor_is_neither_staged_nor_blocking(device):
+    """A tensor already off the host moves device to device: no staging and
+    no wait. A meta tensor stands in for a CUDA one: both decisions read
+    only the device types."""
+    x = torch.zeros(3, device="meta")
+    assert not T.staged_move(x, device) and not T.blocking_move(x, device)
+
+
+def _counts(site):
+    return T.STAGED[site], T.SYNCS[site], T.H2D_BYTES[site]
+
+
+@pytest.mark.parametrize("x", [torch.arange(6, dtype=torch.int32),
+                               np.arange(6, dtype=np.int32), np.int32(7), 2.5])
+def test_a_cpu_target_counts_nothing(x):
+    site = "test_cpu_target"
+    before = _counts(site)
+    T.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        y = T.to_device(x, "cpu", torch.float32, site)
+    assert y.dtype == torch.float32 and torch.equal(y, torch.as_tensor(x).float())
+    assert _counts(site) == before and T.spans() == ()
 
 
 def test_to_device_counts_blocking_moves_only(monkeypatch):
+    """A blocking move counts one sync and runs in its span; it carries
+    nothing host -> device, so H2D_BYTES and STAGED stay."""
     site = "test_site"
     x = torch.arange(6, dtype=torch.int32)
-    before, nbytes = T.SYNCS[site], T.H2D_BYTES[site]
+    before = _counts(site)
     y = T.to_device(x, "cpu", torch.float32, site)           # same device: nothing
     assert y.dtype == torch.float32 and torch.equal(y, x.float())
-    assert (T.SYNCS[site], T.H2D_BYTES[site]) == (before, nbytes)
+    assert _counts(site) == before
 
     monkeypatch.setattr(T, "blocking_move", lambda x, device: True)
     T.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         y = T.to_device(x, "cpu", None, site)
     assert y.dtype == torch.int32 and torch.equal(y, x)
-    assert (T.SYNCS[site], T.H2D_BYTES[site]) == (before + 1, nbytes + 24)
+    assert _counts(site) == (before[0], before[1] + 1, before[2])
     assert [s.name for s in T.spans()] == ["sync." + site]
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+def test_to_device_stages_host_memory_without_a_wait(monkeypatch, pinned):
+    """A staged move pins a copy of the host data (unless it is pinned
+    already), sends it with non_blocking=True, counts one STAGED move and
+    its bytes, and neither counts a sync nor opens a sync span. The CPU
+    stands in for the card: the pinning and the copy are recorded."""
+    site = "test_staged"
+    x = np.arange(6, dtype=np.int32)
+    calls = []
+    monkeypatch.setattr(T, "staged_move", lambda x, device: True)
+    monkeypatch.setattr(torch.Tensor, "is_pinned", lambda self: pinned)
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self: calls.append("pin") or self.clone())
+    real_to = torch.Tensor.to
+
+    def to(self, *args, **kwargs):
+        calls.append(("to", args, kwargs))
+        return real_to(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    before = _counts(site)
+    T.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        y = T.to_device(x, "cpu", torch.float32, site)
+    if not pinned:
+        x[:] = -1                                 # the caller's buffer is free at once
+    assert y.dtype == torch.float32 and torch.equal(y, torch.arange(6).float())
+    assert calls == [*([] if pinned else ["pin"]),
+                     ("to", ("cpu",), {"non_blocking": True}),
+                     ("to", (torch.float32,), {})]
+    assert _counts(site) == (before[0] + 1, before[1], before[2] + 24)
+    assert T.spans() == ()
 
 
 def test_host_sync_counts_and_spans():
@@ -188,3 +271,89 @@ def test_kept_spans_are_bounded(monkeypatch):
             with T.span(name):
                 pass
     assert [s.name for s in T.spans()] == ["c", "d", "e"]
+
+
+# ------------------------------------------------------------- on the card
+# On the card: python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
+
+CARD_KINDS = {"ensemble": 9, "flagship": 1, "flagship.bf16": 1, "flagship.plain": 1}
+# moves staged a step: the ensemble's four query term / weight tensors, its
+# text features and four q8 pad keys (two a view); a flagship's text features
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a staged move is host memory to a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def card_kit(card):
+    """_kit on the card with every flagship route, each step run once (the
+    kernel build and the presorted cap's one read happen here)."""
+    kit = _kit(card, routes=("int8", "bf16", "plain"))
+    for fn, inputs in kit.values():
+        fn(*inputs)
+    torch.cuda.synchronize()
+    return kit
+
+
+def _sync_debug_error(fn, *args):
+    """fn(*args) with torch raising at any call that waits for the device."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CARD_KINDS)
+def test_steps_on_the_card_never_wait_for_the_device(card_kit, kind):
+    """Up to the answers' copy a step makes no call that waits for the
+    device: every host input is staged, none blocks."""
+    fn, inputs = card_kit[kind]
+    staged, syncs = sum(T.STAGED.values()), sum(T.SYNCS.values())
+    out = _sync_debug_error(fn, *inputs)
+    assert [o.is_cuda for o in out] == [True] * len(out)
+    assert sum(T.STAGED.values()) - staged == CARD_KINDS[kind]
+    assert sum(T.SYNCS.values()) == syncs
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host", ["numpy", "tensor"])
+def test_a_staged_move_leaves_the_stream_running_and_keeps_the_values(card, host):
+    """Behind ~0.5 s of queued device sleep, four moves of one host buffer,
+    overwritten between them and after: to_device returns while the stream
+    still sleeps, and each device tensor holds the values the buffer had
+    when its move was made (no pinned block is reused before its copy)."""
+    n = 1 << 16
+    x = np.zeros(n, np.float32) if host == "numpy" else torch.zeros(n)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)
+    outs = []
+    for i in range(4):
+        x[:] = i
+        outs.append(_sync_debug_error(T.to_device, x, card, None, "test_sleep"))
+    x[:] = -1
+    assert not torch.cuda.current_stream().query()
+    for i, t in enumerate(outs):
+        assert torch.equal(t.cpu(), torch.full((n,), float(i)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CARD_KINDS)
+def test_outputs_bit_equal_with_host_and_card_inputs(card_kit, card, kind):
+    """The step's outputs are the same bits whether its inputs come from host
+    memory (staged) or lie on the card already (moved nowhere)."""
+    fn, inputs = card_kit[kind]
+    from_host = fn(*inputs)
+    on_card = [torch.as_tensor(x).to(card) for x in inputs]
+    staged = sum(T.STAGED.values())
+    from_card = fn(*on_card)
+    assert sum(T.STAGED.values()) - staged == (4 if kind == "ensemble" else 0)   # pad keys
+    assert len(from_host) == len(from_card)
+    for a, b in zip(from_host, from_card):
+        assert a.dtype == b.dtype and torch.equal(a, b)
