@@ -7,7 +7,8 @@ Counterpart of qpp_fusion_rag_tpu/ops/sparse.py.
 Host half (numpy): the per-term 8-bit quantization grid, the plain and the
 dual doc-ordered posting layouts and the packed and exact doc-major term
 vectors, byte-equal to the JAX packers so one built index serves both
-packages.
+packages. pack_doc_vectors_device packs the doc vectors on the device the
+postings lie on, bit for bit as the host packer does.
 
 Device half (torch): each query term reads a `p_cap`-wide window of its
 postings (K3). The pair-sort engines sum each doc's f32 contributions over
@@ -334,6 +335,106 @@ def pack_doc_vectors_exact(
 # =============================================================================
 # Device half (torch)
 # =============================================================================
+
+DOC_PACK_ENTRIES = 1 << 26   # postings pack_doc_vectors_device takes per range of docs
+
+
+def _doc_ranges(counts: np.ndarray, max_entries: int) -> list:
+    """Cut docs 0..N into consecutive ranges of at most max_entries
+    postings (a range holds at least one doc). -> [d0, d1, ..., N]."""
+    cum = np.cumsum(counts)
+    edges = [0]
+    while edges[-1] < len(counts):
+        base = int(cum[edges[-1] - 1]) if edges[-1] else 0
+        end = int(np.searchsorted(cum, base + max_entries, side="right"))
+        edges.append(max(end, edges[-1] + 1))
+    return edges
+
+
+def _desc_float_key(w: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) that ascends as f32 w descends (-0.0 as +0.0)."""
+    b = (w + 0.0).view(torch.int32).to(torch.int64)
+    return 0xFFFFFFFF - torch.where(b >= 0, b + (1 << 31), -1 - b)
+
+
+def pack_doc_vectors_device(
+    offsets: torch.Tensor,       # [T+1] CSR term offsets
+    flat_docs: torch.Tensor,     # [P] doc ids in [0, n_docs)
+    flat_weights: torch.Tensor,  # [P] f32 impacts
+    n_docs: int,
+    doc_cap: int = 0,
+    imp_bits: int = 8,
+    return_tail: bool = False,
+):
+    """pack_doc_vectors on the device the postings lie on, bit for bit:
+    -> (doc_packed int32 [N, Td], doc_scale f32 [N], Td), plus tail_max f32
+    [N] with return_tail, as tensors on that device.
+
+    The host rules it keeps: a doc's entries in posting order (ascending
+    term), its doc_cap heaviest kept with ties of equal weight by posting
+    order; scale = max_w / qmax and impact = round-half-even(w /
+    max(scale, 1e-12)), both true f32 divisions (a tensor divisor: a
+    scalar one may become a reciprocal multiply). Docs go in ranges of at
+    most DOC_PACK_ENTRIES postings (plus one doc's), so the temporaries
+    stay near 100 bytes a posting of one range (6.6 GB at SPLADE's 493 M
+    postings on an H100)."""
+    dev = flat_docs.device
+    offsets = torch.as_tensor(offsets, device=dev).to(torch.int64)
+    docs = torch.as_tensor(flat_docs, device=dev)
+    weights = torch.as_tensor(flat_weights, device=dev).to(torch.float32)
+    n_terms = offsets.numel() - 1
+    sentinel_term = (1 << (31 - imp_bits)) - 1
+    if n_terms > sentinel_term:
+        raise ValueError(
+            f"doc-vector packing with imp_bits={imp_bits} needs term ids "
+            f"< 2^{31 - imp_bits} - 1; lower imp_bits (doc_vector_imp_bits)")
+    qmax = (1 << imp_bits) - 1
+    counts = torch.bincount(docs, minlength=n_docs)[:n_docs]
+    td_full = int(counts.max()) if n_docs else 1
+    td = max(td_full if doc_cap <= 0 else min(doc_cap, td_full), 1)
+    cut = td < td_full
+    doc_packed = torch.full((n_docs, td), sentinel_term << imp_bits, dtype=torch.int32,
+                            device=dev)
+    doc_scale = torch.ones(n_docs, dtype=torch.float32, device=dev)
+    tail_max = torch.zeros(n_docs, dtype=torch.float32, device=dev)
+    edges = _doc_ranges(counts.cpu().numpy(), DOC_PACK_ENTRIES)
+    for d0, d1 in zip(edges[:-1], edges[1:]):
+        pos = torch.nonzero((docs >= d0) & (docs < d1)).squeeze(1)
+        d = docs[pos].to(torch.int64) - d0
+        order = torch.sort(d, stable=True).indices       # by doc, then posting order
+        pos, d = pos[order], d[order]
+        del order
+        w = weights[pos]
+        t = torch.searchsorted(offsets, pos, right=True) - 1
+        del pos
+        cnt = counts[d0:d1]
+        start = torch.cumsum(cnt, 0) - cnt
+        maxw = torch.zeros(d1 - d0, dtype=torch.float32, device=dev).scatter_reduce_(
+            0, d, w, "amax", include_self=False)
+        scale = torch.where((cnt > 0) & (maxw > 0), maxw / torch.full_like(maxw, qmax), 1.0)
+        doc_scale[d0:d1] = scale
+        if cut:
+            # rank by weight, descending, ties in posting order; the largest
+            # dropped weight is rank td, and the kept stay in posting order
+            perm = torch.sort((d << 32) | _desc_float_key(w), stable=True).indices
+            rank = torch.empty_like(perm)
+            rank[perm] = torch.arange(d.numel(), device=dev) - start[d]
+            del perm
+            edge = rank == td
+            tail_max[d0:d1][d[edge]] = w[edge]
+            keep = rank < td
+            d, t, w = d[keep], t[keep], w[keep]
+            del rank, keep, edge
+            cnt = torch.clamp(cnt, max=td)
+            start = torch.cumsum(cnt, 0) - cnt
+        col = torch.arange(d.numel(), device=dev) - start[d]
+        q = torch.clamp(torch.round(w / torch.clamp(scale[d], min=1e-12)), 0, qmax)
+        doc_packed[d0:d1].view(-1)[d * td + col] = (
+            (t << imp_bits) | q.to(torch.int64)).to(torch.int32)
+    if return_tail:
+        return doc_packed, doc_scale, td, tail_max
+    return doc_packed, doc_scale, td
+
 
 def _presorted_geometry(offsets, terms, tq_valid, Tq: int):
     """Window starts/lens for the dual layout: each term's region is [asc
@@ -779,21 +880,24 @@ def sparse_exact_rescore(cand_scores, cand_ids, doc_packed, doc_scale, q_terms, 
     """Exact rescore of a candidate pool (each doc at most once per row)
     against the full doc vectors, then the top k with lax.top_k's tie
     order. cand_scores is not read; term_scales as in
-    _exact_rescore_scores. -> (scores [B, k] desc, ids [B, k], -inf / -1
-    pad)."""
-    cand_ids, scores = _exact_rescore_scores(
-        cand_ids, doc_packed, doc_scale, q_terms, q_weights, term_scales=term_scales,
-        imp_bits=imp_bits, sort_ids=sort_ids)
-    kk = min(k, cand_ids.shape[1])
-    top_vals, top_idx = topk_first(scores, kk)
-    top_ids = torch.gather(cand_ids, -1, top_idx)
-    ok = torch.isfinite(top_vals)
-    top_vals = torch.where(ok, top_vals, float("-inf"))
-    top_ids = torch.where(ok, top_ids, -1)
-    if kk < k:
-        top_vals = torch.nn.functional.pad(top_vals, (0, k - kk), value=float("-inf"))
-        top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
-    return top_vals, top_ids
+    _exact_rescore_scores. Runs in span ``sparse.rescore`` and adds the
+    pool's B x C to tracing.RESCORED["sparse"].
+    -> (scores [B, k] desc, ids [B, k], -inf / -1 pad)."""
+    T.RESCORED["sparse"] += cand_ids.numel()
+    with T.span("sparse.rescore"):
+        cand_ids, scores = _exact_rescore_scores(
+            cand_ids, doc_packed, doc_scale, q_terms, q_weights, term_scales=term_scales,
+            imp_bits=imp_bits, sort_ids=sort_ids)
+        kk = min(k, cand_ids.shape[1])
+        top_vals, top_idx = topk_first(scores, kk)
+        top_ids = torch.gather(cand_ids, -1, top_idx)
+        ok = torch.isfinite(top_vals)
+        top_vals = torch.where(ok, top_vals, float("-inf"))
+        top_ids = torch.where(ok, top_ids, -1)
+        if kk < k:
+            top_vals = torch.nn.functional.pad(top_vals, (0, k - kk), value=float("-inf"))
+            top_ids = torch.nn.functional.pad(top_ids, (0, k - kk), value=-1)
+        return top_vals, top_ids
 
 
 def sparse_score_topk_q8_rescored(

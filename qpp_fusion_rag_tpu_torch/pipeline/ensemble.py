@@ -187,11 +187,17 @@ def rerank_candidates(
     """Two-stage rerank: gather candidate rows once for all stacked views,
     rescore, re-sort. -> (scores [..., B, K] desc, ids [..., B, K])."""
     with T.span("rerank"):
-        B, K = cand_ids.shape
-        safe = cand_ids.clamp_min(0).long()
-        cand = corpus_rows[safe.reshape(-1)].reshape(B, K, -1)
-        scale = d_scale[safe] if corpus_rows.dtype == torch.int8 else None
-        return score_candidates(q_vec, cand, cand_ids, scale)
+        return _gather_and_score(q_vec, cand_ids, corpus_rows, d_scale)
+
+
+def _gather_and_score(q_vec, cand_ids, rows, d_scale):
+    """The candidates' rows gathered once and scored (score_candidates),
+    times d_scale where the rows are int8."""
+    B, K = cand_ids.shape
+    safe = cand_ids.clamp_min(0).long()
+    cand = rows[safe.reshape(-1)].reshape(B, K, -1)
+    scale = d_scale[safe] if rows.dtype == torch.int8 else None
+    return score_candidates(q_vec, cand, cand_ids, scale)
 
 
 def dense_view_rescored(q_emb: torch.Tensor, corpus_rows: torch.Tensor,
@@ -199,10 +205,22 @@ def dense_view_rescored(q_emb: torch.Tensor, corpus_rows: torch.Tensor,
                         k: int, pool: int):
     """Rank-safe dense view: the int8 kernel (K1) pools the top
     max(pool, k) docs, the pooled rows of rerank_rows rescore them at their
-    storage precision, and the top k remain. -> (scores [B, k], ids [B, k])."""
+    storage precision (dense_pool_rescore), and the top k remain.
+    -> (scores [B, k], ids [B, k])."""
     _, ci = dense_view_topk(q_emb, corpus_rows, d_scale, max(pool, k))
-    rs, ri = rerank_candidates(q_emb, ci, rerank_rows, d_scale)
+    rs, ri = dense_pool_rescore(q_emb, ci, rerank_rows, d_scale)
     return rs[..., :k], ri[..., :k]
+
+
+def dense_pool_rescore(q_emb: torch.Tensor, cand_ids: torch.Tensor,
+                       rerank_rows: torch.Tensor, d_scale: torch.Tensor):
+    """The rank-safe dense pool rescored as rerank_candidates scores a
+    view, but in span ``dense.rescore``, apart from the two rerank views (a
+    kernel counts toward the innermost span open at its launch), adding
+    B x C to tracing.RESCORED["dense"]. -> (scores [B, C] desc, ids [B, C])."""
+    T.RESCORED["dense"] += cand_ids.numel()
+    with T.span("dense.rescore"):
+        return _gather_and_score(q_emb, cand_ids, rerank_rows, d_scale)
 
 
 def fuse_tail(

@@ -16,7 +16,10 @@ Counters, always on (plain integer adds):
   STAGED     host -> CUDA moves by site that went through pinned
              staging (``to_device``) and did not wait;
   SYNCS      blocking host <-> device moves and reads by site;
-  H2D_BYTES  bytes the staged moves carried from host to device, by site.
+  H2D_BYTES  bytes the staged moves carried from host to device, by site;
+  RESCORED   candidates rescored by site (``sparse``: the doc-vector
+             rescore of a sparse pool; ``dense``: the dense pool's rescore
+             over the rerank rows), B x C a call, from the shapes.
 
 A move from host memory to a CUDA device is copied on the host into a
 page-locked block of PyTorch's caching host allocator and sent with
@@ -41,6 +44,7 @@ LAUNCHES: Counter = Counter()
 STAGED: Counter = Counter()
 SYNCS: Counter = Counter()
 H2D_BYTES: Counter = Counter()
+RESCORED: Counter = Counter()
 
 SYNC = "sync."              # span-name prefix of a blocking move
 MAX_SPANS = 1 << 16         # spans kept; the oldest go first
