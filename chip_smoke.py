@@ -41,8 +41,10 @@ registers and spill bytes that ptxas reported for the bitonic kernels (K2,
 K4, K5), for K6 and for the wgmma group-max instances (K1, K7, K8 / K10, K9)
 are printed after the build. The dense flagship follows (R = 5 views, 5,120
 scoring rows per batch): K7-K10 against their plain versions on the full
-corpus (K7 in both layouts; K1 again at the 5,120 rows; K8 and K10 also at
-D 1024 on a 131,072-doc corpus), fused_retrieval_step for 12 steps on the
+corpus (K7 in both layouts; K1 again at the 5,120 rows, its maxima then
+merged by the row top-k kernel, bit-equal to topk_first and timed beside it
+and torch.topk at 5,120 and 1024 rows; K8 and K10 also at D 1024 on a
+131,072-doc corpus), fused_retrieval_step for 12 steps on the
 int8 route (K1) and 12 on the bf16 route (K7), learned-fusion calls, one
 full-size call of each dense entry point (K8 at stride 4, K9, K10), and a
 torch.profiler window of 3 steps per main path (device busy share, top
@@ -72,7 +74,7 @@ argmax-QPP baselines, and stage 04 (train_fusion_models, per_retriever and
 mlp) with the learned method served from its pickle; QPP, fusion and
 metrics are held to CPU copies. Every
 phase raises on failure and prints its seconds. The line before the last
-is a JSON summary of the ten kernels; the last line is
+is a JSON summary of the ten kernels and the row top-k; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -189,7 +191,7 @@ def ptxas_summary(build_log: str):
     "registers", "stack", "spill_stores", "spill_loads"}}."""
     sources = ("bitonic_segsum.cu", "bitonic_topp.cu", "bitonic_sort.cu", "rescore_match.cu",
                "dense_topk_int8.cu", "group_max_packed.cu", "group_max_scores.cu",
-               "group_max_int8_global.cu")
+               "group_max_int8_global.cu", "row_topk.cu")
     out, src, fn = {}, None, None
     for line in build_log.splitlines():
         if line.startswith("== "):
@@ -703,6 +705,7 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj, rows_i8, d_scale, k1):
         raise AssertionError("K1 group_max_packed_int8 at the flagship's rows != plain "
                              "(int32 bit patterns)")
     k1["max_abs_err"] = max(k1["max_abs_err"], float((got - ref).abs().max()))
+    merge = row_topk_vs_plain(got)
     M5 = q5.shape[0]
     k1["bound_ms_5120"] = bound(M5 * DIM + n * (DIM + 4) + 4 * got.numel(),
                                 2.0 * M5 * n * DIM, "int8")[0]
@@ -716,7 +719,7 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj, rows_i8, d_scale, k1):
     qv = qf.to(torch.bfloat16).contiguous()
     del qf
     qb = q_emb.to(torch.bfloat16).contiguous()
-    res = {}
+    res = {"row_topk": merge}
 
     def timed(name, kernel, plain, err, q, out_bytes, kind="bf16", reps=5, plain_reps=3,
               **extra):
@@ -800,6 +803,42 @@ def dense_kernels_vs_plain(rows_bf16, q_emb, view_proj, rows_i8, d_scale, k1):
           lambda: ST.streaming_group_max_plain(qb, rows_bf16, n), err, qb, out_bytes)
     wide_group_argmax(res, rows_bf16.device)
     return res, cmax
+
+
+def row_topk_vs_plain(vals):
+    """The dense merge on K1's packed maxima of the int8 flagship (5,120 x
+    20,480 at k 100) and on their first 1024 rows, the ensemble's dense view
+    (k 100, and 128: the rank-safe pool): row_topk bit-equal to topk_first
+    on the card, and timed beside its bound (bytes, each once: 4 M G read,
+    12 M k written), topk_first (its plain version) and torch.topk (the
+    library's call, which the port never makes). -> the flagship shape's
+    {ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err}, each other
+    shape's under "<M>x<G>_k<k>"."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels.row_topk import row_topk
+    from qpp_fusion_rag_tpu_torch.ops.segment import topk_first
+
+    out = {}
+    for M, k in ((vals.shape[0], TOP_K), (BATCH, TOP_K), (BATCH, DENSE_POOL)):
+        x = vals[:M].contiguous()
+        G = x.shape[1]
+        (gv, gi), (rv, ri) = row_topk(x, k), topk_first(x, k)
+        if not (torch.equal(gi, ri) and torch.equal(gv.view(torch.int32), rv.view(torch.int32))):
+            raise AssertionError(f"row_topk {M} x {G} k {k} != topk_first on the card")
+        b_ms, b_by = bound(4 * M * G + 12 * M * k, 0.0, "int8")
+        fin = torch.isfinite(rv)
+        err = float((gv - rv)[fin].abs().max()) if bool(fin.any()) else 0.0
+        r = {"max_abs_err": err, "ms": median_ms(lambda: row_topk(x, k), 20),
+             "plain_ms": median_ms(lambda: topk_first(x, k), 5),
+             "library_ms": median_ms(lambda: torch.topk(x, k), 10), "bound_ms": b_ms,
+             "bound_by": b_by}
+        log(f"  row_topk {M} x {G}, k {k}: bit-equal to topk_first; kernel {r['ms']:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by}), topk_first {r['plain_ms']:.3f} ms, torch.topk "
+            f"{r['library_ms']:.3f} ms")
+        if out:
+            out[f"{M}x{G}_k{k}"] = r
+        else:
+            out.update(r)
+    return out
 
 
 def wide_group_argmax(res, dev):
@@ -1937,7 +1976,7 @@ def main() -> None:
     log("[4] kernels vs plain versions on the card, main-path shapes")
     res = kernels_vs_plain(idx_rs, batches[0], imp_bits)
 
-    q8_kernels = ("group_max_packed_int8", "bitonic_segsum_rows", "gather_windows")
+    q8_kernels = ("group_max_packed_int8", "row_topk", "bitonic_segsum_rows", "gather_windows")
     log(f"[5] q8 path: ensemble_retrieval_step (q8, presorted), {ROUNDS} passes over "
         f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs")
     q8_launches, q8_ms, _ = run_path("q8", idx, batches, smi, q8_kernels, sparse_mode="q8")
@@ -1973,7 +2012,7 @@ def main() -> None:
     log("[6d] q8c f32 rescore route: one BM25 call of batch 0 with doc_terms / doc_w")
     f32_cert, doc_terms, doc_w = f32_route(idx_rs, csr["bm25"], bt, bq, imp_bits, dev)
 
-    sort_kernels = ("group_max_packed_int8", "gather_windows")
+    sort_kernels = ("group_max_packed_int8", "row_topk", "gather_windows")
     log(f"[6e] sort path: ensemble_retrieval_step (sparse_mode 'sort', the impact-ordered "
         f"layout), {ROUNDS} passes over {len(batches)} batches of {BATCH} queries")
     sort_launches, sort_ms, _ = run_path("sort", idx_sort, batches, smi, sort_kernels,
@@ -2128,11 +2167,13 @@ def main() -> None:
              dict(corpus_scale=idx.d_scale)),
             ("flagship_bf16", rows_bf16, "group_max_packed", dict(use_pallas=True))):
         flag_launches[name], flag_ms[name], _ = run_flagship(
-            name, fused_retrieval_step, corpus, fbatches, view_proj, smi, (kernel,), **kw)
+            name, fused_retrieval_step, corpus, fbatches, view_proj, smi, (kernel, "row_topk"),
+            **kw)
     params = mlp_params_from_numpy(mlp, dev)
     flag_launches["flagship_learned"], flag_ms["flagship_learned"], _ = run_flagship(
         "flagship_learned", lambda *a, **kw: learned_fused_retrieval_step(params, *a, **kw),
-        rows_bf16, fbatches[:1], view_proj, smi, ("group_max_packed",), use_pallas=True)
+        rows_bf16, fbatches[:1], view_proj, smi, ("group_max_packed", "row_topk"),
+        use_pallas=True)
     phase_s["[10] flagship paths"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -2213,7 +2254,8 @@ def main() -> None:
             "group_max_packed_int8_global": (src + "group_max_int8_global.cu",
                                              tpu + "dense_topk.py:258", "int8_global"),
             "streaming_group_max": (src + "group_max_scores.cu", tpu + "streaming_topk.py:91",
-                                    "streaming")}
+                                    "streaming"),
+            "row_topk": (src + "row_topk.cu", "none (lax.top_k: XLA's merge)", "flagship_int8")}
     paths = {"q8": q8_launches, "q8r": q8r_launches, "q8c": q8c_launches,
              "sort": sort_launches, "window_rescore": win_launches, "q8r_fallback": fb_launches,
              "splade_q8_tq32": long_launches["q8"], "splade_q8r_tq32": long_launches["q8r"],

@@ -59,6 +59,8 @@ SIGNATURES = {
     "qfr_group_max_int8_global": (_P, _P, _I, _I, _I, _I, _P, _P),
     # q, corpus, M, N, D, n_real, n_groups, vals, ids, stream
     "qfr_streaming_group_max": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # x, M, G, k, vec, vals, cols, stream
+    "qfr_row_topk": (_P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

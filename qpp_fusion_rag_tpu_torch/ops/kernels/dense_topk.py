@@ -37,9 +37,11 @@ pad N to a multiple of their tile `tn` with zero docs; here the kernels
 mask the ragged edge themselves, so no corpus is copied: the packed
 outputs have ceil(N/128) columns (JAX's extra columns are all-pad groups,
 which never survive the merge), and K8 keeps JAX's tn-padded grouping
-because its stride reduce depends on it. Every merge is exact
-(``topk_first``, lax.top_k's tie order) where the TPU path may take
-approx_max_k, so these equal the JAX functions with exact_merge=True.
+because its stride reduce depends on it. Every merge is exact (lax.top_k's
+tie order) where the TPU path may take approx_max_k, so these equal the
+JAX functions with exact_merge=True: the f32 merges of K1, K7 and K8 take
+``row_topk`` (csrc/row_topk.cu; ``topk_first`` on the CPU), K9's int32
+merge ``topk_first``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch
 
 from qpp_fusion_rag_tpu_torch import tracing as T
 from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES, _build
+from qpp_fusion_rag_tpu_torch.ops.kernels.row_topk import row_topk
 from qpp_fusion_rag_tpu_torch.ops.segment import topk_first
 
 GROUP = 128          # docs per emitted candidate
@@ -401,7 +404,7 @@ def _topk_int8(queries, corpus_rows, d_scale, k, spans):
         q_int, q_scale = quantize_rows(queries.to(torch.float32))
         vals = group_max_packed_int8(q_int, corpus_rows, d_scale)
     with T.span(spans[1]):
-        tv, tx = topk_first(vals, min(k, vals.shape[-1]))
+        tv, tx = row_topk(vals, min(k, vals.shape[-1]))
         clean, lane = unpack_lane(tv)
         top_ids = tx.to(torch.int32) * GROUP + lane
         top_vals = torch.where(clean > NEG_FINITE / 2, clean * q_scale, float("-inf"))
@@ -440,12 +443,12 @@ def _topk_bf16(queries, corpus, k, tn, stride, packed, transposed, spans):
             vals, ids = group_max_scores(q, corpus, stride=stride, tn=tn)
     with T.span(spans[1]):
         if packed:
-            tv, tx = topk_first(vals, min(k, vals.shape[-1]))
+            tv, tx = row_topk(vals, min(k, vals.shape[-1]))
             clean, lane = unpack_lane(tv)
             top_ids = tx.to(torch.int32) * GROUP + lane
             top_vals = torch.where(clean > NEG_FINITE / 2, clean, float("-inf"))
         else:
-            top_vals, tx = topk_first(vals, min(k, vals.shape[-1]))
+            top_vals, tx = row_topk(vals, min(k, vals.shape[-1]))
             top_ids = torch.gather(ids, -1, tx)
         return _pad_k(top_vals, top_ids, k)
 

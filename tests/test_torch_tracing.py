@@ -357,3 +357,35 @@ def test_outputs_bit_equal_with_host_and_card_inputs(card_kit, card, kind):
     assert len(from_host) == len(from_card)
     for a, b in zip(from_host, from_card):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+MERGE_ROWS = {"ensemble": B, "flagship": R * B, "flagship.bf16": R * B}
+# rows a step's one dense merge gives the row top-k kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MERGE_ROWS)
+def test_steps_merge_on_the_kernel_with_the_sort_s_outputs(card_kit, kind, monkeypatch):
+    """A step's dense merge is one row_topk launch over all its rows, and
+    the step's outputs are the bits it gives with the stable sort
+    (topk_first) as its merge."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels import dense_topk
+    from qpp_fusion_rag_tpu_torch.ops.segment import topk_first
+
+    fn, inputs = card_kit[kind]
+    launches, real, seen = T.LAUNCHES["row_topk"], dense_topk.row_topk, []
+
+    def spy(x, k):
+        seen.append(x.shape[0])
+        return real(x, k)
+
+    monkeypatch.setattr(dense_topk, "row_topk", spy)
+    got = fn(*inputs)
+    assert seen == [MERGE_ROWS[kind]]
+    assert T.LAUNCHES["row_topk"] - launches == 1
+    monkeypatch.setattr(dense_topk, "row_topk", topk_first)
+    ref = fn(*inputs)
+    assert T.LAUNCHES["row_topk"] - launches == 1
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
