@@ -5,27 +5,34 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
+It checks what no test and no benchmark cell does: the kernels at full
+size against their plain versions, and every path's outputs and launches.
+Step times, traces and roofline shares are the benchmark's
+(benchmark_torch/); the peak rates of the kernels' bounds come from its
+benchmark_torch/harness/peaks.py.
+
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel, into build/torch_kernels/), builds the bench-scale synthetic index
-on the host (2,621,440 docs, BM25 and SPLADE presorted postings at p_cap
-2048 and the impact-ordered layout, their doc-major term vectors at
-imp_bits 14 and doc_cap 128 with their tails) and the 768-wide dense corpus
-on the card from a seed (int8 rows for the kernels, bf16 rows of the same
-draws for the rank-safe rerank and the dense flagship), holds each kernel
-against its plain PyTorch version at the main paths' shapes (with its bound
-from those shapes and, where one PyTorch call computes the same function,
-that call's time; K6 also with its matched-weight output at the certified
-pool), then drives the ensemble step for 12 steps (4 passes over three
-batches of 1024 queries) in q8 mode, 12 in rank-safe q8r mode (256 sparse
-candidates, a 128-doc dense pool), 12 in certified q8c mode (the same, with
-the tails; certified_frac on a line of its own), then checks the
-certificates of 8 queries per view against exhaustive float64 scores over
-the full CSR, makes one q8c BM25 call on the f32 route (exact doc vectors),
-drives 12 steps in the default "sort" mode and one window-rescore step
+(2,621,440 docs; on the host the BM25 and SPLADE presorted postings at p_cap
+2048 and the impact-ordered layout, on the card their doc-major term
+vectors at imp_bits 14 and doc_cap 128 with their tails, packed by
+pack_doc_vectors_device from the CSR moved there) and the 768-wide dense
+corpus on the card from a seed (int8 rows for the kernels, bf16 rows of the
+same draws for the rank-safe rerank and the dense flagship), holds each
+kernel against its plain PyTorch version at the main paths' shapes (with its
+time, its bound from those shapes and, where one PyTorch call computes the
+same function, that call's time; K6 also with its matched-weight output at
+the certified pool), then runs the ensemble step once over three batches of
+1024 queries in q8 mode, in rank-safe q8r mode (256 sparse candidates, a
+128-doc dense pool) and in certified q8c mode (the same, with the tails;
+certified_frac on a line of its own), then checks the certificates of 8
+queries per view against exhaustive float64 scores over the full CSR, makes
+one q8c BM25 call on the f32 route (exact doc vectors), runs the three
+batches in the default "sort" mode and one window-rescore step
 (sparse_candidates 4) over the impact-ordered layout, one q8r BM25 call at
-8192 candidates (the pool's full-sort branch), and one
-q8 and one q8r SPLADE call of 32-term queries (rows of 65,536 keys: K2 on
-four-CTA clusters), with K2, K4 and K5 then timed alone at those rows.
+8192 candidates (the pool's full-sort branch), and one q8 and one q8r SPLADE
+call of 32-term queries (rows of 65,536 keys: K2 on four-CTA clusters), with
+K2, K4 and K5 then timed alone at those rows.
 Between them (phase 6g) it drives the sparse index layer at full size:
 SparseIndex over the BM25 CSR (docnos "d<i>", queries "q<i>" through the
 query_encoder hook) with its lazy device arrays timed, search on the
@@ -44,11 +51,10 @@ scoring rows per batch): K7-K10 against their plain versions on the full
 corpus (K7 in both layouts; K1 again at the 5,120 rows, its maxima then
 merged by the row top-k kernel, bit-equal to topk_first and timed beside it
 and torch.topk at 5,120 and 1024 rows; K8 and K10 also at D 1024 on a
-131,072-doc corpus), fused_retrieval_step for 12 steps on the
-int8 route (K1) and 12 on the bf16 route (K7), learned-fusion calls, one
-full-size call of each dense entry point (K8 at stride 4, K9, K10), and a
-torch.profiler window of 3 steps per main path (device busy share, top
-kernels). Each path checks that every kernel it runs launched, with the
+131,072-doc corpus), fused_retrieval_step over the three batches on the
+int8 route (K1) and on the bf16 route (K7), learned-fusion calls, and one
+full-size call of each dense entry point (K8 at stride 4, K9, K10). Each
+path checks its outputs and that every kernel it runs launched, with the
 counts set to 0 just before it. Last, the kernel-bearing views (the q8c
 certificates and the f32 route too) and the flagship's runs and fused
 outputs, and the index layer's "exact" and "q8" searches, are
@@ -95,6 +101,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmark_torch.harness.peaks import HBM_BYTES_PER_S, PEAK_OPS_PER_S
+
 ROOT = Path(__file__).resolve().parent
 N_DOCS = 2_621_440
 DIM = 768
@@ -109,8 +117,6 @@ DOC_CAP = 128
 Q8R_CANDIDATES, DENSE_POOL = 256, 128
 FALLBACK_CANDIDATES = 8192        # bs 16384: 2*bs > M = 16384 for BM25 -> K5
 QUERY_SEEDS = ((1, 2), (3, 4), (5, 6))
-ROUNDS = 4                        # passes over the batches: 12 steps per path, 1 warm-up
-PROFILE_STEPS = 3
 CROSS_Q = 8
 RTOL = 4e-6                       # f32 rescore / rerank sums in another order
 VIEWS_R = 5                       # dense flagship views (bench.py's view_proj)
@@ -130,8 +136,6 @@ TRAIN_CHUNK = 8192                # JAX's default chunk of the training step
 TRAIN_CUT_DOCS, TRAIN_CUT_Q = 131_072, 64   # the card-vs-CPU step check's cut
 TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-6   # f32 matmuls and sums in the card's order
 PREDICT_RTOL, PREDICT_ATOL = 1e-5, 1e-6
-HBM_BPS = 3.35e12                 # H100 SXM device memory, bytes/s
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}   # H100 SXM dense tensor-core peaks
 
 
 def log(msg: str) -> None:
@@ -158,7 +162,7 @@ def bound(nbytes: float, ops: float, kind: str):
     """The least time the card could take: the larger of the bytes the
     function must move over the HBM rate and its operations over the peak
     rate of their type. -> (ms, "bytes" or "operations")."""
-    tb, to = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[kind] * 1e3
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[kind] * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -263,15 +267,17 @@ def long_row_kernels(res, keys, start_block, pkeys, tq):
         f"{r5['bound_ms_65536']:.4f} ms (bytes)")
 
 
-def host_build(n_docs: int):
+def host_build(n_docs: int, dev):
     """Bench-scale synthetic BM25 + SPLADE indexes (the parameters of the
-    JAX package's bench): presorted postings, doc-major vectors with their
-    tails, the impact-ordered layout of the "sort" and window-rescore modes,
-    and the raw CSR (offsets, docs, f32 weights) of the soundness check."""
+    JAX package's bench): on the host the presorted postings, the
+    impact-ordered layout of the "sort" and window-rescore modes and the
+    raw CSR (offsets, docs, f32 weights) of the soundness check; on `dev`
+    the doc-major vectors with their tails, packed from the CSR moved
+    there."""
     from qpp_fusion_rag_tpu_torch.data import synthetic as S
     from qpp_fusion_rag_tpu_torch.ops.sparse import (
         doc_vector_imp_bits,
-        pack_doc_vectors,
+        pack_doc_vectors_device,
         pack_postings,
         pack_postings_presorted,
         term_scales_from_csr,
@@ -288,11 +294,14 @@ def host_build(n_docs: int):
         scales = term_scales_from_csr(w, off)
         packed, off2, _ = pack_postings_presorted(docs, w, off, cap=P_CAP, scales=scales)
         t0 = time.perf_counter()
-        dp, dsc, td, tail = pack_doc_vectors(off, docs, w, n_docs, doc_cap=DOC_CAP,
-                                             imp_bits=imp_bits, return_tail=True)
+        dp, dsc, td, tail = pack_doc_vectors_device(
+            *(torch.from_numpy(x).to(dev) for x in (off, docs, w)), n_docs, doc_cap=DOC_CAP,
+            imp_bits=imp_bits, return_tail=True)
+        torch.cuda.synchronize()
         log(f"  {name}: {len(docs)} postings -> {len(packed)} packed; doc vectors "
-            f"[{n_docs}, {td}] imp_bits {imp_bits} in {time.perf_counter() - t0:.1f} s, "
-            f"truncated {(tail > 0).mean() * 100:.2f}% of docs")
+            f"[{n_docs}, {td}] imp_bits {imp_bits} packed on the card in "
+            f"{time.perf_counter() - t0:.2f} s, truncated "
+            f"{float((tail > 0).float().mean()) * 100:.2f}% of docs")
         plain, _ = pack_postings(docs, w, off, scales=scales)
         out.update({f"{name}_packed": packed, f"{name}_scales": scales,
                     f"{name}_offsets": off2, f"{name}_csr_offsets": off,
@@ -547,46 +556,32 @@ def check_step_output(out, n_docs):
         raise AssertionError("duplicate fused ids in a row")
 
 
-def drive(name, step_fn, batches, smi, expect, n_docs, rounds=ROUNDS):
-    """Run step_fn over the batches `rounds` times with the launch counts
-    set to 0 just before; check the first round's outputs and that every
-    kernel in `expect` launched. -> (launch counts, per-step ms: the first
-    step is the warm-up, the rest steady; the first round's outputs)."""
+def drive(name, step_fn, batches, expect, n_docs):
+    """Run step_fn once over the batches with the launch counts set to 0
+    just before; check the outputs and that every kernel in `expect`
+    launched. -> (launch counts, the outputs)."""
     from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES
 
     LAUNCHES.clear()
-    outs, step_ms = [], []
-    for r in range(rounds):
-        for batch in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step_fn(batch)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            if r == 0:
-                outs.append(out)
+    outs = [step_fn(batch) for batch in batches]
     launches = dict(LAUNCHES)
-    steady = step_ms[1:] or step_ms
-    med = statistics.median(steady)
-    log(f"  {name}: {len(step_ms)} steps; first {step_ms[0]:.1f} ms, steady median {med:.3f} ms "
-        f"(min {min(steady):.3f}, max {max(steady):.3f}) -> {BATCH / med * 1e3:.0f} q/s ({smi})")
-    log(f"  launches during the {name} path: {launches}")
+    log(f"  launches during the {name} path ({len(outs)} steps): {launches}")
     missing = [k for k in expect if launches.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"kernels of the {name} path never launched: {missing}")
     for out in outs:
         check_step_output(out, n_docs)
     log("  outputs: shapes, finite QPP, non-increasing fused scores, unique ids < N: ok")
-    return launches, step_ms, outs
+    return launches, outs
 
 
-def run_path(name, idx, batches, smi, expect, rounds=ROUNDS, presorted=True, **kw):
+def run_path(name, idx, batches, expect, presorted=True, **kw):
     """The ensemble step over the batches (drive)."""
     from qpp_fusion_rag_tpu_torch.pipeline.ensemble import ensemble_retrieval_step
 
     return drive(name, lambda b: ensemble_retrieval_step(
         idx, *b, k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=presorted, **kw),
-        batches, smi, expect, idx.corpus_rows.shape[0], rounds)
+        batches, expect, idx.corpus_rows.shape[0])
 
 
 def assert_close_ranking(g_s, g_i, c_s, c_i, what):
@@ -869,46 +864,10 @@ def wide_group_argmax(res, dev):
             "all near-ties)")
 
 
-def run_flagship(name, step, corpus, batches, view_proj, smi, expect, rounds=ROUNDS, **kw):
+def run_flagship(name, step, corpus, batches, view_proj, expect, **kw):
     """A flagship step over the batches (drive)."""
     return drive(name, lambda b: step(b[0], view_proj, corpus, b[1], k=TOP_K, k_out=TOP_K, **kw),
-                 batches, smi, expect, corpus.shape[0], rounds)
-
-
-def profile_steps(name, fn, steps=None):
-    """Device time of `steps` calls of fn under torch.profiler: the busy
-    share of the window (union of the kernels' intervals over the window
-    from the first event to the last), and the five kernels that took most
-    of the device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    steps = steps or PROFILE_STEPS
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    events = list(prof.events())
-    kern = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                  if e.device_type == DeviceType.CUDA)
-    if not kern:
-        raise AssertionError(f"profile of {name}: no device events")
-    t0 = min(e.time_range.start for e in events)
-    t1 = max(e.time_range.end for e in events)
-    busy, end = 0.0, t0
-    by_name = {}
-    for a, b, n in kern:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-        by_name[n] = by_name.get(n, 0.0) + (b - a)
-    total = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda x: -x[1])[:5]
-    log(f"  {name}: device busy {busy / 1e3:.3f} ms of a {(t1 - t0) / 1e3:.3f} ms window over "
-        f"{steps} steps (idle share {1 - busy / (t1 - t0):.3f}); kernel time {total / 1e3:.3f} ms")
-    for n, us in top:
-        log(f"    {us / 1e3 / steps:8.3f} ms/step  {us / total * 100:5.1f} %  {n[:90]}")
+                 batches, expect, corpus.shape[0])
 
 
 def entry_call(name, kernel, fn, n_docs):
@@ -1491,11 +1450,10 @@ def training_and_models(rows_bf16, rows_i8, d_scale, fbatches, view_proj, smi, d
     log("[13b] serving the trained weights: learned_fused_retrieval_step on the K7 route "
         "(use_pallas=True, bf16 rows), one batch")
     trained = [{k: v.detach() for k, v in layer.items()} for layer in state.params]
-    launches, ms, _ = run_flagship(
+    launches, _ = run_flagship(
         "learned_trained", lambda *a, **kw: E.learned_fused_retrieval_step(trained, *a, **kw),
-        rows_bf16, fbatches[:1], view_proj, smi, ("group_max_packed",), rounds=1,
-        use_pallas=True)
-    out["serve_trained"] = {"launches": launches, "ms": ms[0]}
+        rows_bf16, fbatches[:1], view_proj, ("group_max_packed",), use_pallas=True)
+    out["serve_trained"] = {"launches": launches}
 
     feats = []
     for q_emb, tf in fbatches:
@@ -1946,7 +1904,7 @@ def main() -> None:
         for k, v in kernel_ptxas.items()))
 
     t0 = time.perf_counter()
-    h = host_build(N_DOCS)
+    h = host_build(N_DOCS, dev)
     host_s = time.perf_counter() - t0
     imp_bits = h["imp_bits"]
     t0 = time.perf_counter()
@@ -1955,8 +1913,7 @@ def main() -> None:
                               for f in ("packed", "scales", "offsets")}
                              | {"corpus_rows": rows, "d_scale": scale}, dev)
     idx_rs = idx._replace(rerank_rows=rows_bf16, doc_imp_bits=imp_bits, **{
-        f"{v}_{f}": torch.as_tensor(h[f"{v}_{f}"], device=dev)
-        for v in VIEWS for f in ("doc_packed", "doc_scale", "tail")})
+        f"{v}_{f}": h[f"{v}_{f}"] for v in VIEWS for f in ("doc_packed", "doc_scale", "tail")})
     # the impact-ordered layout of the "sort" and window-rescore modes
     idx_sort = idx._replace(**{
         f"{v}_{f}": torch.as_tensor(x, device=dev) for v in VIEWS for f, x in (
@@ -1977,26 +1934,25 @@ def main() -> None:
     res = kernels_vs_plain(idx_rs, batches[0], imp_bits)
 
     q8_kernels = ("group_max_packed_int8", "row_topk", "bitonic_segsum_rows", "gather_windows")
-    log(f"[5] q8 path: ensemble_retrieval_step (q8, presorted), {ROUNDS} passes over "
-        f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs")
-    q8_launches, q8_ms, _ = run_path("q8", idx, batches, smi, q8_kernels, sparse_mode="q8")
+    log(f"[5] q8 path: ensemble_retrieval_step (q8, presorted), {len(batches)} batches of "
+        f"{BATCH} queries, {N_DOCS} docs")
+    q8_launches, _ = run_path("q8", idx, batches, q8_kernels, sparse_mode="q8")
 
     q8r_kernels = q8_kernels + ("bitonic_topp_rows", "rescore_match")
     log(f"[6] q8r path: ensemble_retrieval_step (q8r, {Q8R_CANDIDATES} candidates, dense "
-        f"pool {DENSE_POOL}, bf16 rerank rows, doc_imp_bits {imp_bits}), {ROUNDS} passes over "
-        f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs")
-    q8r_launches, q8r_ms, _ = run_path(
-        "q8r", idx_rs, batches, smi, q8r_kernels, sparse_mode="q8r",
+        f"pool {DENSE_POOL}, bf16 rerank rows, doc_imp_bits {imp_bits}), {len(batches)} "
+        f"batches of {BATCH} queries, {N_DOCS} docs")
+    q8r_launches, _ = run_path(
+        "q8r", idx_rs, batches, q8r_kernels, sparse_mode="q8r",
         sparse_candidates=Q8R_CANDIDATES, dense_rescore_pool=DENSE_POOL,
         doc_imp_bits=imp_bits)
 
     bt, bq, st, sq, q_emb, _, _ = batches[0]
     log(f"[6b] q8c path: ensemble_retrieval_step (q8c, {Q8R_CANDIDATES} candidates, dense "
         f"pool {DENSE_POOL}, bf16 rerank rows, doc_imp_bits {imp_bits}, doc_cap {DOC_CAP} "
-        f"with tails), {ROUNDS} passes over {len(batches)} batches of {BATCH} queries, "
-        f"{N_DOCS} docs")
-    q8c_launches, q8c_ms, q8c_outs = run_path(
-        "q8c", idx_rs, batches, smi, q8r_kernels, sparse_mode="q8c",
+        f"with tails), {len(batches)} batches of {BATCH} queries, {N_DOCS} docs")
+    q8c_launches, q8c_outs = run_path(
+        "q8c", idx_rs, batches, q8r_kernels, sparse_mode="q8c",
         sparse_candidates=Q8R_CANDIDATES, dense_rescore_pool=DENSE_POOL,
         doc_imp_bits=imp_bits)
     certified = torch.cat([out[3] for out in q8c_outs])
@@ -2014,14 +1970,13 @@ def main() -> None:
 
     sort_kernels = ("group_max_packed_int8", "row_topk", "gather_windows")
     log(f"[6e] sort path: ensemble_retrieval_step (sparse_mode 'sort', the impact-ordered "
-        f"layout), {ROUNDS} passes over {len(batches)} batches of {BATCH} queries")
-    sort_launches, sort_ms, _ = run_path("sort", idx_sort, batches, smi, sort_kernels,
-                                         presorted=False, sparse_mode="sort")
+        f"layout), {len(batches)} batches of {BATCH} queries")
+    sort_launches, _ = run_path("sort", idx_sort, batches, sort_kernels, presorted=False,
+                                sparse_mode="sort")
     log(f"[6f] window rescore: one ensemble_retrieval_step (sparse_candidates "
         f"{WINDOW_CANDIDATES}: a pool of {WINDOW_CANDIDATES * TOP_K} raw contributions per view)")
-    win_launches, win_ms, _ = run_path("window_rescore", idx_sort, batches[:1], smi,
-                                       sort_kernels, rounds=1, presorted=False,
-                                       sparse_candidates=WINDOW_CANDIDATES)
+    win_launches, _ = run_path("window_rescore", idx_sort, batches[:1], sort_kernels,
+                               presorted=False, sparse_candidates=WINDOW_CANDIDATES)
 
     t_ix = time.perf_counter()
     log(f"[6g] sparse index layer: SparseIndex over the BM25 CSR and SpladeIndex over the "
@@ -2144,7 +2099,6 @@ def main() -> None:
         fused_retrieval_step,
         learned_fused_retrieval_step,
     )
-    from qpp_fusion_rag_tpu_torch.pipeline.ensemble import ensemble_retrieval_step
     from qpp_fusion_rag_tpu_torch.pipeline.interop import mlp_params_from_numpy
 
     t0 = time.perf_counter()
@@ -2159,21 +2113,19 @@ def main() -> None:
     phase_s["[9] dense kernels vs plain"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    log(f"[10] dense flagship: fused_retrieval_step, {VIEWS_R} views, {ROUNDS} passes over "
-        f"{len(batches)} batches of {BATCH} queries, {N_DOCS} docs, on each route")
-    flag_launches, flag_ms = {}, {}
+    log(f"[10] dense flagship: fused_retrieval_step, {VIEWS_R} views, {len(batches)} batches "
+        f"of {BATCH} queries, {N_DOCS} docs, on each route")
+    flag_launches = {}
     for name, corpus, kernel, kw in (
             ("flagship_int8", idx.corpus_rows, "group_max_packed_int8",
              dict(corpus_scale=idx.d_scale)),
             ("flagship_bf16", rows_bf16, "group_max_packed", dict(use_pallas=True))):
-        flag_launches[name], flag_ms[name], _ = run_flagship(
-            name, fused_retrieval_step, corpus, fbatches, view_proj, smi, (kernel, "row_topk"),
-            **kw)
+        flag_launches[name], _ = run_flagship(
+            name, fused_retrieval_step, corpus, fbatches, view_proj, (kernel, "row_topk"), **kw)
     params = mlp_params_from_numpy(mlp, dev)
-    flag_launches["flagship_learned"], flag_ms["flagship_learned"], _ = run_flagship(
+    flag_launches["flagship_learned"], _ = run_flagship(
         "flagship_learned", lambda *a, **kw: learned_fused_retrieval_step(params, *a, **kw),
-        rows_bf16, fbatches[:1], view_proj, smi, ("group_max_packed", "row_topk"),
-        use_pallas=True)
+        rows_bf16, fbatches[:1], view_proj, ("group_max_packed", "row_topk"), use_pallas=True)
     phase_s["[10] flagship paths"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -2194,31 +2146,6 @@ def main() -> None:
     }
     del rows_g
     phase_s["[11] entry points"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    log(f"[11b] device time: torch.profiler over {PROFILE_STEPS} steps of each main path")
-    for name, fn in (
-            ("q8", lambda: ensemble_retrieval_step(
-                idx, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True,
-                sparse_mode="q8")),
-            ("q8r", lambda: ensemble_retrieval_step(
-                idx_rs, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True,
-                sparse_mode="q8r", sparse_candidates=Q8R_CANDIDATES,
-                dense_rescore_pool=DENSE_POOL, doc_imp_bits=imp_bits)),
-            ("q8c", lambda: ensemble_retrieval_step(
-                idx_rs, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_presorted=True,
-                sparse_mode="q8c", sparse_candidates=Q8R_CANDIDATES,
-                dense_rescore_pool=DENSE_POOL, doc_imp_bits=imp_bits)),
-            ("sort", lambda: ensemble_retrieval_step(
-                idx_sort, *batches[1], k=TOP_K, k_out=TOP_K, p_cap=P_CAP, sparse_mode="sort")),
-            ("flagship_int8", lambda: fused_retrieval_step(
-                *fbatches[1][:1], view_proj, idx.corpus_rows, fbatches[1][1], k=TOP_K,
-                k_out=TOP_K, corpus_scale=idx.d_scale)),
-            ("flagship_bf16", lambda: fused_retrieval_step(
-                *fbatches[1][:1], view_proj, rows_bf16, fbatches[1][1], k=TOP_K, k_out=TOP_K,
-                use_pallas=True))):
-        profile_steps(name, fn)
-    phase_s["[11b] profile"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     log(f"[12] flagship cross-check of {CROSS_Q} queries on CPU copies")
@@ -2271,11 +2198,8 @@ def main() -> None:
                         **res[name], **({"ptxas": ptxas} if ptxas else {})})
     for name, sec in phase_s.items():
         log(f"  {name}: {sec:.1f} s")
-    steady = {"q8": q8_ms, "q8r": q8r_ms, "q8c": q8c_ms, "sort": sort_ms, **flag_ms}
-    steady = {k: round(statistics.median(v[1:] or v), 3) for k, v in steady.items()}
-    log(f"  total {time.perf_counter() - t_all:.1f} s; steady median step ms {steady}; "
-        f"q8c certified_frac {certified_frac}; window-rescore step {win_ms[0]:.1f} ms; "
-        f"fallback call {fb_ms:.1f} ms; SPLADE Tq {LONG_TQ} calls ms {long_ms}; host build "
+    log(f"  total {time.perf_counter() - t_all:.1f} s; "
+        f"q8c certified_frac {certified_frac}; fallback call {fb_ms:.1f} ms; SPLADE Tq {LONG_TQ} calls ms {long_ms}; host build "
         f"{host_s:.1f} s; kernel build {build_s:.1f} s; {smi}")
     log(f"  index layer ({smi}): call ms {ix_res['ms']}; lazy device arrays s "
         f"{ix_res['lazy_s']}; search_certified {ix_res['certified']}; autotune_sparse "

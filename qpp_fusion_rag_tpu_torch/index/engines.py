@@ -15,8 +15,9 @@ Host classes provide:
   num_docs, device (a torch.device), and _doc_vector_terms() -> int (the
       term-id space size for doc_vector_imp_bits).
 
-Every array is built on the host once, on first use, and moved to
-`device`; the engines run through ops/sparse.py (K3, K2, K4 / K5, K6).
+Every array is built once, on first use: the packed doc vectors on
+`device` from the CSR moved there, the rest on the host and then moved to
+`device`. The engines run through ops/sparse.py (K3, K2, K4 / K5, K6).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from qpp_fusion_rag_tpu_torch.ops.sparse import (
     doc_vector_imp_bits,
-    pack_doc_vectors,
+    pack_doc_vectors_device,
     pack_doc_vectors_exact,
     pack_postings,
     pack_postings_presorted,
@@ -80,14 +81,15 @@ class PackedEngineMixin:
 
     def _device_doc_vectors(self):
         """Packed doc-major vectors and per-doc scales for the rank-safe
-        rescore (ops.sparse.pack_doc_vectors, no doc_cap; impact precision
-        sized to the term space by doc_vector_imp_bits).
-        -> (doc_packed, doc_scale, imp_bits)."""
+        rescore, packed on `device` (ops.sparse.pack_doc_vectors_device, no
+        doc_cap; impact precision sized to the term space by
+        doc_vector_imp_bits). -> (doc_packed, doc_scale, imp_bits)."""
         if getattr(self, "_device_docvec", None) is None:
             docs, weights, offsets, _ = self._packed_source()
             bits = doc_vector_imp_bits(self._doc_vector_terms())
-            dp, ds, _ = pack_doc_vectors(offsets, docs, weights, self.num_docs, imp_bits=bits)
-            self._device_docvec = (self._to_device(dp), self._to_device(ds), bits)
+            dp, ds, _ = pack_doc_vectors_device(
+                *map(self._to_device, (offsets, docs, weights)), self.num_docs, imp_bits=bits)
+            self._device_docvec = (dp, ds, bits)
         return self._device_docvec
 
     def _device_doc_vectors_exact(self):

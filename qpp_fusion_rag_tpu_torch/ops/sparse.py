@@ -7,8 +7,9 @@ Counterpart of qpp_fusion_rag_tpu/ops/sparse.py.
 Host half (numpy): the per-term 8-bit quantization grid, the plain and the
 dual doc-ordered posting layouts and the packed and exact doc-major term
 vectors, byte-equal to the JAX packers so one built index serves both
-packages. pack_doc_vectors_device packs the doc vectors on the device the
-postings lie on, bit for bit as the host packer does.
+packages. The packed doc vectors have one implementation,
+pack_doc_vectors_device, on the device the postings lie on;
+pack_doc_vectors runs it on CPU tensors for numpy callers.
 
 Device half (torch): each query term reads a `p_cap`-wide window of its
 postings (K3). The pair-sort engines sum each doc's f32 contributions over
@@ -252,54 +253,14 @@ def pack_doc_vectors(
     max_w / (2^imp_bits - 1)). doc_cap > 0 keeps each doc's doc_cap
     heaviest terms (the rescore then lower-bounds the true score).
     -> (doc_packed int32 [N, Td], doc_scale f32 [N], Td), plus tail_max f32
-    [N] (each doc's largest dropped weight, 0.0 if none) with return_tail."""
-    offsets = np.asarray(offsets, dtype=np.int64)
-    flat_docs = np.asarray(flat_docs)
-    flat_weights = np.asarray(flat_weights, dtype=np.float32)
-    T = len(offsets) - 1
-    sentinel_term = (1 << (31 - imp_bits)) - 1
-    if T > sentinel_term:
-        raise ValueError(
-            f"doc-vector packing with imp_bits={imp_bits} needs term ids "
-            f"< 2^{31 - imp_bits} - 1; lower imp_bits (doc_vector_imp_bits)")
-    qmax = (1 << imp_bits) - 1
-    term_of = np.repeat(np.arange(T, dtype=np.int64), np.diff(offsets))
-    order = np.argsort(flat_docs, kind="stable")
-    d_sorted = flat_docs[order]
-    t_sorted = term_of[order]
-    w_sorted = flat_weights[order]
-    bounds = np.searchsorted(d_sorted, np.arange(n_docs + 1))
-    counts = np.diff(bounds)
-    td_full = int(counts.max()) if n_docs else 1
-    td = max(td_full if doc_cap <= 0 else min(doc_cap, td_full), 1)
-
-    doc_scale = np.ones(n_docs, dtype=np.float32)
-    nz = counts > 0
-    if nz.any():
-        maxw = np.maximum.reduceat(w_sorted, bounds[:-1][nz])
-        doc_scale[nz] = np.where(maxw > 0, maxw / qmax, 1.0)
-
-    tail_max = np.zeros(n_docs, dtype=np.float32)
-    if td < td_full:
-        # rank entries per doc by -w; the largest dropped weight is rank td
-        rank = np.zeros(len(d_sorted), dtype=np.int64)
-        sub = np.lexsort((-w_sorted, d_sorted))
-        rank[sub] = np.arange(len(d_sorted)) - np.repeat(bounds[:-1], counts)
-        edge = rank == td
-        tail_max[d_sorted[edge]] = w_sorted[edge]
-        keep = rank < td
-        d_sorted, t_sorted, w_sorted = d_sorted[keep], t_sorted[keep], w_sorted[keep]
-        bounds = np.searchsorted(d_sorted, np.arange(n_docs + 1))
-        counts = np.diff(bounds)
-
-    q = np.clip(np.round(w_sorted / np.maximum(
-        np.repeat(doc_scale, counts), 1e-12)), 0, qmax).astype(np.int64)
-    doc_packed = np.full((n_docs, td), np.int64(sentinel_term) << imp_bits, dtype=np.int64)
-    col = np.arange(len(d_sorted)) - np.repeat(bounds[:-1], counts)
-    doc_packed[d_sorted, col] = (t_sorted << imp_bits) | q
-    if return_tail:
-        return doc_packed.astype(np.int32), doc_scale, td, tail_max
-    return doc_packed.astype(np.int32), doc_scale, td
+    [N] (each doc's largest dropped weight, 0.0 if none) with return_tail,
+    as numpy arrays: pack_doc_vectors_device run on CPU tensors."""
+    out = pack_doc_vectors_device(
+        torch.from_numpy(np.ascontiguousarray(offsets, dtype=np.int64)),
+        torch.from_numpy(np.ascontiguousarray(flat_docs)),
+        torch.from_numpy(np.ascontiguousarray(flat_weights, dtype=np.float32)),
+        n_docs, doc_cap=doc_cap, imp_bits=imp_bits, return_tail=return_tail)
+    return tuple(o.numpy() if isinstance(o, torch.Tensor) else o for o in out)
 
 
 def pack_doc_vectors_exact(
@@ -366,11 +327,11 @@ def pack_doc_vectors_device(
     imp_bits: int = 8,
     return_tail: bool = False,
 ):
-    """pack_doc_vectors on the device the postings lie on, bit for bit:
+    """pack_doc_vectors on the device the postings lie on:
     -> (doc_packed int32 [N, Td], doc_scale f32 [N], Td), plus tail_max f32
     [N] with return_tail, as tensors on that device.
 
-    The host rules it keeps: a doc's entries in posting order (ascending
+    The rules, those of the JAX package's host packer: a doc's entries in posting order (ascending
     term), its doc_cap heaviest kept with ties of equal weight by posting
     order; scale = max_w / qmax and impact = round-half-even(w /
     max(scale, 1e-12)), both true f32 divisions (a tensor divisor: a
@@ -880,10 +841,8 @@ def sparse_exact_rescore(cand_scores, cand_ids, doc_packed, doc_scale, q_terms, 
     """Exact rescore of a candidate pool (each doc at most once per row)
     against the full doc vectors, then the top k with lax.top_k's tie
     order. cand_scores is not read; term_scales as in
-    _exact_rescore_scores. Runs in span ``sparse.rescore`` and adds the
-    pool's B x C to tracing.RESCORED["sparse"].
+    _exact_rescore_scores. Runs in span ``sparse.rescore``.
     -> (scores [B, k] desc, ids [B, k], -inf / -1 pad)."""
-    T.RESCORED["sparse"] += cand_ids.numel()
     with T.span("sparse.rescore"):
         cand_ids, scores = _exact_rescore_scores(
             cand_ids, doc_packed, doc_scale, q_terms, q_weights, term_scales=term_scales,

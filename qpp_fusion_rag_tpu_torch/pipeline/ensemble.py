@@ -216,9 +216,8 @@ def dense_pool_rescore(q_emb: torch.Tensor, cand_ids: torch.Tensor,
                        rerank_rows: torch.Tensor, d_scale: torch.Tensor):
     """The rank-safe dense pool rescored as rerank_candidates scores a
     view, but in span ``dense.rescore``, apart from the two rerank views (a
-    kernel counts toward the innermost span open at its launch), adding
-    B x C to tracing.RESCORED["dense"]. -> (scores [B, C] desc, ids [B, C])."""
-    T.RESCORED["dense"] += cand_ids.numel()
+    kernel counts toward the innermost span open at its launch).
+    -> (scores [B, C] desc, ids [B, C])."""
     with T.span("dense.rescore"):
         return _gather_and_score(q_emb, cand_ids, rerank_rows, d_scale)
 

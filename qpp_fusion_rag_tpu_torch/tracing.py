@@ -15,11 +15,7 @@ Counters, always on (plain integer adds):
              ``ops/kernels`` adds one where it launches its kernel;
   STAGED     host -> CUDA moves by site that went through pinned
              staging (``to_device``) and did not wait;
-  SYNCS      blocking host <-> device moves and reads by site;
-  H2D_BYTES  bytes the staged moves carried from host to device, by site;
-  RESCORED   candidates rescored by site (``sparse``: the doc-vector
-             rescore of a sparse pool; ``dense``: the dense pool's rescore
-             over the rerank rows), B x C a call, from the shapes.
+  SYNCS      blocking host <-> device moves and reads by site.
 
 A move from host memory to a CUDA device is copied on the host into a
 page-locked block of PyTorch's caching host allocator and sent with
@@ -43,8 +39,6 @@ import torch
 LAUNCHES: Counter = Counter()
 STAGED: Counter = Counter()
 SYNCS: Counter = Counter()
-H2D_BYTES: Counter = Counter()
-RESCORED: Counter = Counter()
 
 SYNC = "sync."              # span-name prefix of a blocking move
 MAX_SPANS = 1 << 16         # spans kept; the oldest go first
@@ -143,10 +137,9 @@ def to_device(x, device, dtype: Optional[torch.dtype], site: str) -> torch.Tenso
     """``torch.as_tensor(x, device=device)``, then ``.to(dtype)`` where
     dtype is given. A staged move (staged_move) copies x into pinned host
     memory and from there to the device with non_blocking=True, and adds
-    one to STAGED[site] and its bytes to H2D_BYTES[site]; x may be
-    overwritten as soon as this returns. A tensor that is pinned already is
-    sent as it is, and its owner keeps it unchanged until the stream has
-    passed the copy. A blocking move (blocking_move) adds one to
+    one to STAGED[site]; x may be overwritten as soon as this returns. A
+    tensor that is pinned already is sent as it is, and its owner keeps it
+    unchanged until the stream has passed the copy. A blocking move (blocking_move) adds one to
     SYNCS[site] and runs inside span ``sync.<site>``; any other move
     counts nothing."""
     if staged_move(x, device):
@@ -155,7 +148,6 @@ def to_device(x, device, dtype: Optional[torch.dtype], site: str) -> torch.Tenso
             t = t.pin_memory()
         t = t.to(device, non_blocking=True)
         STAGED[site] += 1
-        H2D_BYTES[site] += t.numel() * t.element_size()
     elif blocking_move(x, device):
         SYNCS[site] += 1
         with span(SYNC + site):

@@ -1,9 +1,11 @@
-"""The rank-safe layer of the port: doc vectors packed on the device
-(ops.sparse.pack_doc_vectors_device) array for array equal to the host
-packer pack_doc_vectors, and the rank-safe ensemble step's spans and
-rescore counter (sparse.rescore, dense.rescore, tracing.RESCORED). CPU
-tensors, except the cases marked cuda, which skip without a card. The file
-imports no JAX, so the card cases run where only torch is installed:
+"""The rank-safe layer of the port: doc vectors packed by
+ops.sparse.pack_doc_vectors_device array for array equal, on CPU tensors,
+to the JAX package's host packer and, on the card, to the port's packer on
+CPU tensors; and the rank-safe ensemble step's spans (sparse.rescore,
+dense.rescore). CPU tensors, except the cases marked cuda, which skip
+without a card. The file imports no JAX at module level (the CPU cases
+import it in their bodies), so the card cases run where only torch is
+installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_rank_safe.py
 """
@@ -51,25 +53,30 @@ PACK_CASES = {
 @pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("case", PACK_CASES)
 def test_device_packer_equals_host_packer(csr, case, device, monkeypatch):
-    """Every output, dtype and shape included, equal bit for bit: a cut cap
-    ranks each doc's terms by weight with ties in posting order (the
-    tied case rounds the weights to halves, so most docs hold ties at
-    the cut), empty docs keep scale 1 and sentinel rows, and ranges of
-    docs cut small give the same arrays as one range."""
+    """Every output, dtype and shape included, equal bit for bit to an
+    independent packing: on the CPU the JAX package's host packer, on the
+    card the port's packer run on CPU tensors. A cut cap ranks each doc's
+    terms by weight with ties in posting order (the tied case rounds the
+    weights to halves, so most docs hold ties at the cut), empty docs keep
+    scale 1 and sentinel rows, and ranges of docs cut small give the same
+    arrays as one range."""
     dev = _device(device)
     doc_cap, bits, tail, weights, extra, max_entries = PACK_CASES[case]
     off, docs, w = csr
     if weights == "tied":
         w = (np.round(w * 2) / 2).astype(np.float32)
     n = 3000 + extra
-    want = SP.pack_doc_vectors(off, docs, w, n, doc_cap=doc_cap, imp_bits=bits,
-                               return_tail=tail)
+    kw = dict(doc_cap=doc_cap, imp_bits=bits, return_tail=tail)
+    if dev.type == "cpu":
+        from qpp_fusion_rag_tpu.ops.sparse import pack_doc_vectors as reference
+        want = reference(off, docs, w, n, **kw)
+    else:
+        want = SP.pack_doc_vectors(off, docs, w, n, **kw)
     if max_entries is not None:
         monkeypatch.setattr(SP, "DOC_PACK_ENTRIES", max_entries)
     got = SP.pack_doc_vectors_device(torch.from_numpy(off).to(dev),
                                      torch.from_numpy(docs).to(dev),
-                                     torch.from_numpy(w).to(dev), n, doc_cap=doc_cap,
-                                     imp_bits=bits, return_tail=tail)
+                                     torch.from_numpy(w).to(dev), n, **kw)
     assert len(got) == len(want) == (4 if tail else 3)
     assert got[2] == want[2]
     for g, h in zip(got[:2] + got[3:], want[:2] + want[3:]):
@@ -147,19 +154,14 @@ def _children(kept, parent):
 def test_q8r_step_rescore_spans_and_counter(q8r_cpu):
     """Each sparse view's pool rescore runs in sparse.rescore inside its
     sparse_view; the dense pool's in dense.rescore beside dense_view and
-    apart from the two rerank views; RESCORED adds B x C a pool, with
-    tracing on and off, and the outputs are the same bits either way."""
+    apart from the two rerank views; the outputs are the same bits with
+    tracing on and off."""
     step, inputs = q8r_cpu
-    before = T.RESCORED.copy()
     off = step(*inputs)
-    assert T.RESCORED["sparse"] - before["sparse"] == 2 * B * CAND
-    assert T.RESCORED["dense"] - before["dense"] == B * POOL
     T.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         on = step(*inputs)
     kept = T.spans()
-    assert T.RESCORED["sparse"] - before["sparse"] == 4 * B * CAND
-    assert T.RESCORED["dense"] - before["dense"] == 2 * B * POOL
     assert _children(kept, "ensemble_step") == [
         "sparse_view", "sparse_view", "dense_view", "dense.rescore", "rerank", "qpp",
         "qpp_norm", "fusion"]

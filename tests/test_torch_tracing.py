@@ -177,7 +177,7 @@ def test_a_device_tensor_is_neither_staged_nor_blocking(device):
 
 
 def _counts(site):
-    return T.STAGED[site], T.SYNCS[site], T.H2D_BYTES[site]
+    return T.STAGED[site], T.SYNCS[site]
 
 
 @pytest.mark.parametrize("x", [torch.arange(6, dtype=torch.int32),
@@ -194,7 +194,7 @@ def test_a_cpu_target_counts_nothing(x):
 
 def test_to_device_counts_blocking_moves_only(monkeypatch):
     """A blocking move counts one sync and runs in its span; it carries
-    nothing host -> device, so H2D_BYTES and STAGED stay."""
+    nothing host -> device, so STAGED stays."""
     site = "test_site"
     x = torch.arange(6, dtype=torch.int32)
     before = _counts(site)
@@ -207,16 +207,16 @@ def test_to_device_counts_blocking_moves_only(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         y = T.to_device(x, "cpu", None, site)
     assert y.dtype == torch.int32 and torch.equal(y, x)
-    assert _counts(site) == (before[0], before[1] + 1, before[2])
+    assert _counts(site) == (before[0], before[1] + 1)
     assert [s.name for s in T.spans()] == ["sync." + site]
 
 
 @pytest.mark.parametrize("pinned", [False, True])
 def test_to_device_stages_host_memory_without_a_wait(monkeypatch, pinned):
     """A staged move pins a copy of the host data (unless it is pinned
-    already), sends it with non_blocking=True, counts one STAGED move and
-    its bytes, and neither counts a sync nor opens a sync span. The CPU
-    stands in for the card: the pinning and the copy are recorded."""
+    already), sends it with non_blocking=True, counts one STAGED move, and
+    neither counts a sync nor opens a sync span. The CPU stands in for the
+    card: the pinning and the copy are recorded."""
     site = "test_staged"
     x = np.arange(6, dtype=np.int32)
     calls = []
@@ -241,7 +241,7 @@ def test_to_device_stages_host_memory_without_a_wait(monkeypatch, pinned):
     assert calls == [*([] if pinned else ["pin"]),
                      ("to", ("cpu",), {"non_blocking": True}),
                      ("to", (torch.float32,), {})]
-    assert _counts(site) == (before[0] + 1, before[1], before[2] + 24)
+    assert _counts(site) == (before[0] + 1, before[1])
     assert T.spans() == ()
 
 
