@@ -5,6 +5,7 @@
   segment  -- the segmented-aggregation primitive
   fusion   -- CombSUM / CombMNZ / RRF (+ weighted) fusion
   qpp      -- the 13 QPP statistics as one reduction
+  graphs   -- CUDA graphs that replay the QPP and fusion kernels on a card
   metrics  -- IR metrics (nDCG / RR / R / P / AP) as batched reductions
   trees    -- GBDT ensembles as node-array traversal
   kernels/ -- the hand-written CUDA kernels and their plain versions

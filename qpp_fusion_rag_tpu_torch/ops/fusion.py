@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from qpp_fusion_rag_tpu_torch.ops import graphs as G
 from qpp_fusion_rag_tpu_torch.ops.segment import SENTINEL, segmented_topk
 
 COMBSUM, COMBMNZ, RRF = 0, 1, 2
@@ -38,7 +39,19 @@ def _row_minmax(scores: torch.Tensor, valid: torch.Tensor,
 def fuse_kernel(ids: torch.Tensor, scores: torch.Tensor, weights: torch.Tensor,
                 method: int = COMBSUM, rrf_k: float = 60.0,
                 minmax_norm: bool = True, k_out: int = 100):
-    """Fuse R run tensors -> (fused_ids [Q, k_out], fused_scores [Q, k_out])."""
+    """Fuse R run tensors -> (fused_ids [Q, k_out], fused_scores [Q, k_out]).
+    On a CUDA device a repeated call replays a captured graph of
+    fuse_eager (ops/graphs.py, site "fusion"); elsewhere it runs
+    fuse_eager."""
+    return G.replay_or_run("fusion", fuse_eager, (ids, scores, weights),
+                           {"method": method, "rrf_k": rrf_k,
+                            "minmax_norm": minmax_norm, "k_out": k_out})
+
+
+def fuse_eager(ids: torch.Tensor, scores: torch.Tensor, weights: torch.Tensor,
+               method: int = COMBSUM, rrf_k: float = 60.0,
+               minmax_norm: bool = True, k_out: int = 100):
+    """fuse_kernel's eager route: the fusion op by op."""
     R, Q, K = ids.shape
     valid = ids >= 0
     if method == RRF:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from qpp_fusion_rag_tpu_torch import tracing as T
+from qpp_fusion_rag_tpu_torch.ops import graphs as G
 from qpp_fusion_rag_tpu_torch.ops.segment import cumsum_blocked
 
 N_METHODS = 13
@@ -61,7 +62,16 @@ def qpp_kernel(scores: torch.Tensor, n_valid: torch.Tensor,
                text_feats: torch.Tensor, cutoff: int = DEFAULT_CUTOFF) -> torch.Tensor:
     """scores [..., K] desc-sorted (padding masked by n_valid [...]),
     text_feats [..., 4] (num_terms, num_unique, max_len, avg_len), leading
-    dims broadcast. -> raw (un-normalized) statistics [..., 13]."""
+    dims broadcast. -> raw (un-normalized) statistics [..., 13]. On a CUDA
+    device a repeated call replays a captured graph of qpp_statistics
+    (ops/graphs.py, site "qpp"); elsewhere it runs qpp_statistics."""
+    return G.replay_or_run("qpp", qpp_statistics, (scores, n_valid, text_feats),
+                           {"cutoff": cutoff})
+
+
+def qpp_statistics(scores: torch.Tensor, n_valid: torch.Tensor,
+                   text_feats: torch.Tensor, cutoff: int = DEFAULT_CUTOFF) -> torch.Tensor:
+    """qpp_kernel's eager route: the statistics op by op."""
     with T.span("qpp.mean"):
         K = scores.shape[-1]
         s = scores.to(torch.float32)

@@ -15,7 +15,10 @@ Counters, always on (plain integer adds):
              ``ops/kernels`` adds one where it launches its kernel;
   STAGED     host -> CUDA moves by site that went through pinned
              staging (``to_device``) and did not wait;
-  SYNCS      blocking host <-> device moves and reads by site.
+  SYNCS      blocking host <-> device moves and reads by site;
+  REPLAYS    CUDA-graph replays by site (``ops/graphs.py``: ``qpp``,
+             ``fusion``), each in span ``<site>.graph``;
+  CAPTURES   CUDA-graph captures by site, failed ones included.
 
 A move from host memory to a CUDA device is copied on the host into a
 page-locked block of PyTorch's caching host allocator and sent with
@@ -39,6 +42,8 @@ import torch
 LAUNCHES: Counter = Counter()
 STAGED: Counter = Counter()
 SYNCS: Counter = Counter()
+REPLAYS: Counter = Counter()
+CAPTURES: Counter = Counter()
 
 SYNC = "sync."              # span-name prefix of a blocking move
 MAX_SPANS = 1 << 16         # spans kept; the oldest go first

@@ -389,3 +389,35 @@ def test_steps_merge_on_the_kernel_with_the_sort_s_outputs(card_kit, kind, monke
     assert len(got) == len(ref)
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+GRAPH_SPANS = {"ensemble": ("ensemble_step", ["fusion.minmax", "fusion.combine"]),
+               "flagship": ("flagship_step", ["fusion.combine"])}
+# a traced step's top span and the children of its fusion span
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GRAPH_SPANS)
+def test_a_traced_step_after_warm_up_replays_the_qpp_and_fusion_graphs(card_kit, kind):
+    """After warm-up, a traced step shows qpp.graph under qpp and
+    fusion.graph under fusion.combine (ops/graphs.py), in place of the
+    eager sub-spans, and its outputs are the untraced step's bits."""
+    fn, inputs = card_kit[kind]
+    for _ in range(2):
+        off = fn(*inputs)
+    T.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = fn(*inputs)
+        torch.cuda.synchronize()
+    kept = T.spans()
+    top, fusion = GRAPH_SPANS[kind]
+    assert _children(kept, None) == [top]
+    assert _children(kept, "qpp") == ["qpp.graph"] + (["qpp_norm"] if kind == "flagship"
+                                                      else [])
+    assert _children(kept, "fusion") == fusion
+    assert _children(kept, "fusion.combine") == ["fusion.graph"]
+    assert not {s.name for s in kept} & {"qpp.mean", "qpp.moments", "qpp.prefix",
+                                         "qpp.columns"}
+    assert len(on) == len(off)
+    for a, b in zip(on, off):
+        assert a.dtype == b.dtype and torch.equal(a, b)
