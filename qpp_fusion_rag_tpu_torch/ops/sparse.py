@@ -59,7 +59,7 @@ from qpp_fusion_rag_tpu_torch.ops.segment import (
     SENTINEL,
     run_totals_presorted,
     segmented_sums_presorted_i32,
-    segmented_topk,
+    segmented_topk_presorted,
     topk_first,
 )
 
@@ -488,7 +488,17 @@ def _packed_contributions(packed, offsets, term_scales, q_terms, q_weights, p_ca
 
 
 def _segmented_scores(docs, vals, k: int):
-    ids, scores, _ = segmented_topk(docs, vals, k)
+    """The pair-sort engines' sums and top-k: segment.segmented_topk's
+    stable id sort in span ``sparse.pair_sort``, then its
+    segmented_topk_presorted (the f32 run totals and their exact top-k) in
+    span ``sparse.run_sums``; fusion's own call of segmented_topk carries
+    neither. -> (scores [B, kk] desc, ids [B, kk], -inf / -1 pad),
+    kk = min(k, M)."""
+    with T.span("sparse.pair_sort"):
+        sids, order = torch.sort(docs, dim=-1, stable=True)
+        svals = torch.gather(vals, -1, order)
+    with T.span("sparse.run_sums"):
+        ids, scores, _ = segmented_topk_presorted(sids, svals, k)
     return scores, ids
 
 
@@ -509,8 +519,9 @@ def sparse_score_topk(
     doc over the id-sorted row (segment.segmented_topk: f32 cumsum
     differences), the exact top kk. exact_topk has no effect: the selection
     is always exact."""
-    docs, vals = _unpacked_contributions(flat_docs, flat_weights, offsets, q_terms,
-                                         q_weights, p_cap, term_scales)
+    with T.span("sparse.pairs"):
+        docs, vals = _unpacked_contributions(flat_docs, flat_weights, offsets, q_terms,
+                                             q_weights, p_cap, term_scales)
     return _segmented_scores(docs, vals, k)
 
 
@@ -528,8 +539,10 @@ def sparse_score_topk_packed(
     """sparse_score_topk over packed postings (pack_postings): one K3 gather
     of int32 windows. Same output; exact_topk and dma_gather have no
     effect."""
-    return _segmented_scores(*_packed_contributions(
-        packed, offsets, term_scales, q_terms, q_weights, p_cap), k)
+    with T.span("sparse.pairs"):
+        docs, vals = _packed_contributions(packed, offsets, term_scales, q_terms, q_weights,
+                                           p_cap)
+    return _segmented_scores(docs, vals, k)
 
 
 def _rescore_pool(docs, vals, k: int, candidates: int):

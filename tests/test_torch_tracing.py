@@ -21,18 +21,21 @@ from qpp_fusion_rag_tpu_torch.pipeline import engine as EN
 from qpp_fusion_rag_tpu_torch.pipeline import ensemble as EM
 
 N, D, R, B, K, CAP = 4096, 32, 5, 8, 16, 64
-STEP_SPANS = {"ensemble": "ensemble_step", "flagship": "flagship_step"}
+STEP_SPANS = {"ensemble": "ensemble_step", "ensemble.sort": "ensemble_step",
+              "flagship": "flagship_step"}
+SORT_SPANS = ["sparse.pairs", "sparse.pair_sort", "sparse.run_sums"]
 
 
 def _kit(device, routes=("int8",)):
     """-> {kind: (step, inputs)}, step(*inputs) one served step with its
     indexes and corpus on `device`: "ensemble", the q8 ensemble step over
-    presorted BM25 / SPLADE postings (as the benchmark serves it), and
-    "flagship" on the int8 route ("flagship.<route>" for each other route
-    of `routes`: bf16, plain). Query terms, weights and text features are
-    host tensors, as the benchmark hands them over; embeddings and
-    projections lie on `device`."""
-    arrays, inputs = {}, []
+    presorted BM25 / SPLADE postings (as the benchmark serves it),
+    "ensemble.sort", the step in its default sparse mode over the same
+    postings in the plain layout, and "flagship" on the int8 route
+    ("flagship.<route>" for each other route of `routes`: bf16, plain).
+    Query terms, weights and text features are host tensors, as the
+    benchmark hands them over; embeddings and projections lie on `device`."""
+    arrays, plain, inputs = {}, {}, []
     for name, vocab, avg, seed, tq in (("bm25", 1500, 30.0, 0, 8),
                                        ("splade", 1000, 40.0, 7, 16)):
         off, docs, w, _ = zipf_bm25_csr(N, vocab_size=vocab, avg_doc_len=avg, seed=seed)
@@ -41,6 +44,10 @@ def _kit(device, routes=("int8",)):
         arrays.update({f"{name}_packed": torch.from_numpy(packed).to(device),
                        f"{name}_offsets": torch.from_numpy(off2.astype(np.int32)).to(device),
                        f"{name}_scales": torch.from_numpy(sc).to(device)})
+        packed, sc = SP.pack_postings(docs, w, off, scales=scales)
+        plain.update({f"{name}_packed": torch.from_numpy(packed).to(device),
+                      f"{name}_offsets": torch.from_numpy(off.astype(np.int32)).to(device),
+                      f"{name}_scales": torch.from_numpy(sc).to(device)})
         qt, qw = zipf_queries(off, B, n_terms=tq, seed=seed + 1)
         inputs += [torch.from_numpy(qt), torch.from_numpy(qw)]
     rng = np.random.default_rng(0)
@@ -48,6 +55,7 @@ def _kit(device, routes=("int8",)):
     rows, d_scale = quantize_rows(corpus)
     rows, d_scale = rows.to(device), d_scale.reshape(-1).to(device)
     idx = EM.EnsembleIndexes(corpus_rows=rows, d_scale=d_scale, **arrays)
+    idx_plain = EM.EnsembleIndexes(corpus_rows=rows, d_scale=d_scale, **plain)
     q = torch.from_numpy(rng.standard_normal((B, D), np.float32)).to(device)
     rerank_proj = torch.from_numpy(rng.standard_normal((2, D, D), np.float32) * 0.05)
     view_proj = torch.from_numpy(rng.standard_normal((R, D, D), np.float32) * 0.05)
@@ -55,7 +63,9 @@ def _kit(device, routes=("int8",)):
     tf = torch.tensor([[6.0, 6.0, 9.0, 5.0]]).repeat(B, 1)
     kit = {"ensemble": (lambda *a: EM.ensemble_retrieval_step(
         idx, *a, k=K, k_out=K, p_cap=CAP, sparse_mode="q8", sparse_presorted=True),
-        (*inputs, q, rerank_proj.to(device), tf))}
+        (*inputs, q, rerank_proj.to(device), tf)),
+        "ensemble.sort": (lambda *a: EM.ensemble_retrieval_step(
+            idx_plain, *a, k=K, k_out=K, p_cap=CAP), (*inputs, q, rerank_proj.to(device), tf))}
     corpora = {"int8": (rows, {"corpus_scale": d_scale}),
                "bf16": (corpus.to(torch.bfloat16).to(device), {"use_pallas": True}),
                "plain": (corpus.to(device), {})}
@@ -69,7 +79,8 @@ def _kit(device, routes=("int8",)):
 
 @pytest.fixture(scope="module")
 def steps():
-    """-> {"ensemble": step(), "flagship": step()} on the CPU (_kit)."""
+    """-> {"ensemble": step(), "ensemble.sort": step(), "flagship": step()}
+    on the CPU (_kit)."""
     return {kind: (lambda fn=fn, inputs=inputs: fn(*inputs))
             for kind, (fn, inputs) in _kit("cpu").items()}
 
@@ -113,7 +124,7 @@ def test_no_spans_and_no_annotations_without_profiler(steps, monkeypatch):
     assert T.span("a") is T.span("b")          # the one shared no-op context
 
 
-@pytest.mark.parametrize("kind", ["ensemble", "flagship"])
+@pytest.mark.parametrize("kind", ["ensemble", "ensemble.sort", "flagship"])
 def test_spans_under_profiler_match_the_trace(steps, kind):
     """The kept spans are exactly the profiler's user annotations, name for
     name and parent for parent; one step span at the top, none named
@@ -137,6 +148,49 @@ def test_ensemble_step_layers(steps):
     assert not [s for s in kept if s.name.startswith(T.SYNC)]   # no card, no waits
 
 
+def test_sort_step_layers(steps):
+    """The default sparse mode's three phases open under each sparse view and
+    nowhere else: fusion's own segmented top-k carries no sparse label."""
+    _, kept, _ = _traced(steps["ensemble.sort"])
+    assert _children(kept, "ensemble_step") == [
+        "sparse_view", "sparse_view", "dense_view", "rerank", "qpp", "qpp_norm", "fusion"]
+    assert _children(kept, "sparse_view") == SORT_SPANS * 2
+    assert {s.parent for s in kept if s.name.startswith("sparse.")} == {"sparse_view"}
+    assert _children(kept, "fusion") == ["fusion.minmax", "fusion.combine"]
+    assert _children(kept, "fusion.combine") == []
+
+
+def _parent_route(docs, vals, k):
+    """The pair sums as they ran before their spans: one segmented_topk."""
+    from qpp_fusion_rag_tpu_torch.ops.segment import segmented_topk
+
+    ids, scores, _ = segmented_topk(docs, vals, k)
+    return scores, ids
+
+
+@pytest.mark.parametrize("k", [1, 16, 5000])
+def test_pair_sums_equal_segmented_topk(k):
+    """_segmented_scores gives segmented_topk's bits on rows with repeated
+    ids, SENTINEL pads and tied sums, k past the row's runs included."""
+    from qpp_fusion_rag_tpu_torch.ops.segment import SENTINEL
+
+    g = torch.Generator().manual_seed(3)
+    docs = torch.randint(0, 300, (6, 1024), generator=g, dtype=torch.int32)
+    docs[:, -100:] = SENTINEL
+    vals = torch.randint(0, 4, (6, 1024), generator=g).float() * 0.37
+    got, want = SP._segmented_scores(docs, vals, k), _parent_route(docs, vals, k)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_sort_step_equals_the_segmented_topk_route(steps, monkeypatch):
+    got = steps["ensemble.sort"]()
+    monkeypatch.setattr(SP, "_segmented_scores", _parent_route)
+    want = steps["ensemble.sort"]()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_flagship_step_layers(steps):
     _, kept, _ = _traced(steps["flagship"])
     assert _children(kept, "flagship_step") == ["flagship_retrieval", "qpp", "minmax",
@@ -148,7 +202,7 @@ def test_flagship_step_layers(steps):
     assert _children(kept, "fusion") == ["fusion.combine"]
 
 
-@pytest.mark.parametrize("kind", ["ensemble", "flagship"])
+@pytest.mark.parametrize("kind", ["ensemble", "ensemble.sort", "flagship"])
 def test_outputs_bit_equal_with_tracing_on_and_off(steps, kind):
     off = steps[kind]()
     on, _, _ = _traced(steps[kind])
@@ -276,9 +330,10 @@ def test_kept_spans_are_bounded(monkeypatch):
 # ------------------------------------------------------------- on the card
 # On the card: python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
 
-CARD_KINDS = {"ensemble": 9, "flagship": 1, "flagship.bf16": 1, "flagship.plain": 1}
+CARD_KINDS = {"ensemble": 9, "ensemble.sort": 5, "flagship": 1, "flagship.bf16": 1,
+              "flagship.plain": 1}
 # moves staged a step: the ensemble's four query term / weight tensors, its
-# text features and four q8 pad keys (two a view); a flagship's text features
+# text features and, in q8, four pad keys (two a view); a flagship's text features
 
 
 @pytest.fixture(scope="module")
@@ -359,7 +414,7 @@ def test_outputs_bit_equal_with_host_and_card_inputs(card_kit, card, kind):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-MERGE_ROWS = {"ensemble": B, "flagship": R * B, "flagship.bf16": R * B}
+MERGE_ROWS = {"ensemble": B, "ensemble.sort": B, "flagship": R * B, "flagship.bf16": R * B}
 # rows a step's one dense merge gives the row top-k kernel
 
 
@@ -392,6 +447,7 @@ def test_steps_merge_on_the_kernel_with_the_sort_s_outputs(card_kit, kind, monke
 
 
 GRAPH_SPANS = {"ensemble": ("ensemble_step", ["fusion.minmax", "fusion.combine"]),
+               "ensemble.sort": ("ensemble_step", ["fusion.minmax", "fusion.combine"]),
                "flagship": ("flagship_step", ["fusion.combine"])}
 # a traced step's top span and the children of its fusion span
 
@@ -421,3 +477,45 @@ def test_a_traced_step_after_warm_up_replays_the_qpp_and_fusion_graphs(card_kit,
     assert len(on) == len(off)
     for a, b in zip(on, off):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _traced_on_card(fn, inputs):
+    """-> (outputs, kept spans) of one step under torch.profiler with CPU
+    and CUDA activity."""
+    T.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out = fn(*inputs)
+        torch.cuda.synchronize()
+    return out, T.spans()
+
+
+@pytest.mark.cuda
+def test_sort_step_on_the_card_spans_and_bits(card_kit, monkeypatch):
+    """On the card a traced sort-mode step opens the three pair-sum phases
+    under each sparse view and nowhere else, and gives the untraced step's
+    bits, which are the bits of the step with its pair sums on one
+    segmented_topk (the route before the spans)."""
+    fn, inputs = card_kit["ensemble.sort"]
+    for _ in range(2):
+        off = fn(*inputs)
+    on, kept = _traced_on_card(fn, inputs)
+    assert _children(kept, "sparse_view") == SORT_SPANS * 2
+    assert {s.parent for s in kept if s.name.startswith("sparse.")} == {"sparse_view"}
+    monkeypatch.setattr(SP, "_segmented_scores", _parent_route)
+    parent = fn(*inputs)
+    for a, b, c in zip(on, off, parent):
+        assert a.dtype == b.dtype == c.dtype and torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+def test_eager_fusion_on_the_card_carries_no_sparse_span(card_kit, monkeypatch):
+    """With the tail eager (no graph), the step's fusion runs segmented_topk
+    on the card and opens no sparse.* span."""
+    from qpp_fusion_rag_tpu_torch.ops import graphs
+
+    monkeypatch.setattr(graphs, "replay_or_run", lambda site, fn, t, s: fn(*t, **s))
+    fn, inputs = card_kit["ensemble.sort"]
+    _, kept = _traced_on_card(fn, inputs)
+    assert _children(kept, "fusion.combine") == []
+    assert {s.parent for s in kept if s.name.startswith("sparse.")} == {"sparse_view"}
+    assert "qpp.mean" in {s.name for s in kept}            # the eager tail ran
