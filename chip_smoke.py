@@ -195,7 +195,7 @@ def ptxas_summary(build_log: str):
     "registers", "stack", "spill_stores", "spill_loads"}}."""
     sources = ("bitonic_segsum.cu", "bitonic_topp.cu", "bitonic_sort.cu", "rescore_match.cu",
                "dense_topk_int8.cu", "group_max_packed.cu", "group_max_scores.cu",
-               "group_max_int8_global.cu", "row_topk.cu")
+               "group_max_int8_global.cu", "row_topk.cu", "run_sums_topk.cu")
     out, src, fn = {}, None, None
     for line in build_log.splitlines():
         if line.startswith("== "):
@@ -833,6 +833,51 @@ def row_topk_vs_plain(vals):
             out[f"{M}x{G}_k{k}"] = r
         else:
             out.update(r)
+    return out
+
+
+def run_sums_vs_plain(idx, batch):
+    """The "sort" path's run sums on batch 0's id-sorted pairs of each view
+    (BM25 Tq x p_cap, SPLADE Tq x p_cap pairs a query, k 100): run_sums_topk
+    bit-equal to segmented_topk_presorted on the card, and timed beside its
+    bound (bytes, each once: 8 B a pair read, 12 B a winner), the torch
+    route (its plain version) and topk_first alone over its totals. -> the
+    views summed {ms, plain_ms, library_ms (topk_first), bound_ms, bound_by,
+    max_abs_err}, each view's under "<B>x<M>"."""
+    from qpp_fusion_rag_tpu_torch.ops import sparse as S
+    from qpp_fusion_rag_tpu_torch.ops.kernels.run_sums import run_sums_topk
+    from qpp_fusion_rag_tpu_torch.ops.segment import (
+        run_totals_presorted,
+        segmented_topk_presorted,
+        topk_first,
+    )
+
+    bt, bq, st, sq = batch[:4]
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes"}
+    for view, terms, qw in (("bm25", bt, bq), ("splade", st, sq)):
+        packed, offsets, scales = view_args(idx, view)
+        docs, vals = S._packed_contributions(packed, offsets, scales, terms, qw, P_CAP)
+        sids, order = torch.sort(docs, dim=-1, stable=True)
+        svals = torch.gather(vals, -1, order)
+        B, M = sids.shape
+        (gs, gi), (ri, rs, _) = run_sums_topk(sids, svals, TOP_K), \
+            segmented_topk_presorted(sids, svals, TOP_K)
+        if not (torch.equal(gi, ri) and torch.equal(gs.view(torch.int32), rs.view(torch.int32))):
+            raise AssertionError(f"run_sums_topk {B} x {M} != segmented_topk_presorted on the card")
+        sums, _, at_last = run_totals_presorted(sids, svals)
+        totals = torch.where(at_last, sums, float("-inf"))
+        b_ms, _ = bound(8 * B * M + 12 * B * TOP_K, 0.0, "int8")
+        r = {"max_abs_err": 0.0, "ms": median_ms(lambda: run_sums_topk(sids, svals, TOP_K), 20),
+             "plain_ms": median_ms(lambda: segmented_topk_presorted(sids, svals, TOP_K), 5),
+             "library_ms": median_ms(lambda: topk_first(totals, TOP_K), 10), "bound_ms": b_ms,
+             "bound_by": "bytes"}
+        log(f"  run_sums_topk {B} x {M}, k {TOP_K}: bit-equal to segmented_topk_presorted; "
+            f"kernel {r['ms']:.3f} ms, bound {b_ms:.4f} ms (bytes), torch route "
+            f"{r['plain_ms']:.3f} ms, topk_first of the totals {r['library_ms']:.3f} ms")
+        out[f"{B}x{M}"] = r
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[key] += r[key]
     return out
 
 
@@ -1968,14 +2013,15 @@ def main() -> None:
     log("[6d] q8c f32 rescore route: one BM25 call of batch 0 with doc_terms / doc_w")
     f32_cert, doc_terms, doc_w = f32_route(idx_rs, csr["bm25"], bt, bq, imp_bits, dev)
 
-    sort_kernels = ("group_max_packed_int8", "row_topk", "gather_windows")
+    sort_kernels = ("group_max_packed_int8", "row_topk", "gather_windows", "run_sums_topk")
     log(f"[6e] sort path: ensemble_retrieval_step (sparse_mode 'sort', the impact-ordered "
         f"layout), {len(batches)} batches of {BATCH} queries")
     sort_launches, _ = run_path("sort", idx_sort, batches, sort_kernels, presorted=False,
                                 sparse_mode="sort")
+    res["run_sums_topk"] = run_sums_vs_plain(idx_sort, batches[0])
     log(f"[6f] window rescore: one ensemble_retrieval_step (sparse_candidates "
         f"{WINDOW_CANDIDATES}: a pool of {WINDOW_CANDIDATES * TOP_K} raw contributions per view)")
-    win_launches, _ = run_path("window_rescore", idx_sort, batches[:1], sort_kernels,
+    win_launches, _ = run_path("window_rescore", idx_sort, batches[:1], sort_kernels[:3],
                                presorted=False, sparse_candidates=WINDOW_CANDIDATES)
 
     t_ix = time.perf_counter()
@@ -2182,7 +2228,9 @@ def main() -> None:
                                              tpu + "dense_topk.py:258", "int8_global"),
             "streaming_group_max": (src + "group_max_scores.cu", tpu + "streaming_topk.py:91",
                                     "streaming"),
-            "row_topk": (src + "row_topk.cu", "none (lax.top_k: XLA's merge)", "flagship_int8")}
+            "row_topk": (src + "row_topk.cu", "none (lax.top_k: XLA's merge)", "flagship_int8"),
+            "run_sums_topk": (src + "run_sums_topk.cu",
+                              "none (the \"sort\" engine: XLA's cumsum and lax.top_k)", "sort")}
     paths = {"q8": q8_launches, "q8r": q8r_launches, "q8c": q8c_launches,
              "sort": sort_launches, "window_rescore": win_launches, "q8r_fallback": fb_launches,
              "splade_q8_tq32": long_launches["q8"], "splade_q8r_tq32": long_launches["q8r"],

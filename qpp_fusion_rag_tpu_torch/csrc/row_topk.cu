@@ -28,98 +28,21 @@
 //     columns is 276 KB; the L2 holds 50 MB). Each thread keeps the largest
 //     order key (the f32 bits mapped to an unsigned int that orders as the
 //     floats do) of its G/512 values.
-//  2. A threshold tau from those maxima: each warp takes the q-th largest of
-//     its 32 (q = ceil(k / 16), a warp bitonic sort by shuffles), and tau is
-//     the least of the 16 warps'. Each warp has q threads whose maximum is
-//     >= tau, each a distinct value, so 16 q >= k values are >= tau and the
-//     k-th largest is too. On the cells' rows a few hundred values pass.
-//  3. The values >= tau go into a shared buffer of (key, ~column) pairs
-//     (a warp ballot and one shared atomic a warp). If they fit (at most
-//     kSortCap), one bitonic sort of the pairs, descending, orders them by
-//     key and then by lowest column, which is the tie rule, and its first k
-//     are the answer. The values are read back from the staged row.
-//  4. Otherwise (rows with thousands of equal values, or k > 512, which
-//     takes no threshold): a radix select over 8-bit digits among the values
-//     >= tau, with one histogram a warp in shared memory, narrows to the
-//     digit holding the k-th key and goes back to step 3 as soon as the
-//     values at or above the chosen prefix fit. With all 32 bits chosen, the
-//     keys above the k-th (fewer than k) go into the buffer and the first k
-//     minus those keys equal to it in column order (a block scan) fill it.
-//  Shared memory: the staged row (4 G bytes) and 16 KB for the buffer, which
-//  the histograms share; two CTAs an SM at the cells' G. The buffer holds
-//  kSortCap pairs, so k is at most that.
+//  2-4. row_select.cuh's select_topk: a threshold from the threads' maxima,
+//     a bitonic sort of the few hundred values above it, a radix select where
+//     thousands tie. The values are read back from the staged row.
+//  Shared memory: the staged row (4 G bytes) and 16 KB for the selection's
+//  buffer; two CTAs an SM at the cells' G.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_select.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBins = 256;          // one 8-bit digit
-constexpr int kSortCap = 2048;      // pairs the bitonic buffer holds (16 KB)
-constexpr int kMaxK = kSortCap;     // the largest k: its pairs fill the buffer
+using namespace row_select;
+
 constexpr int kMaxG = 53248;        // the widest row that shared memory stages
-constexpr unsigned kFull = 0xffffffffu;
-
-static_assert(kSortCap * 8 == kWarps * kBins * 4, "the histograms share the buffer");
-
-__device__ __forceinline__ uint32_t order_key(uint32_t bits) {
-  bits = bits == 0x80000000u ? 0u : bits;  // -0.0 ties with +0.0
-  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
-}
-
-__device__ __forceinline__ uint64_t pair_of(uint32_t key, int col) {
-  return (static_cast<uint64_t>(key) << 32) | static_cast<uint32_t>(~col);
-}
-
-__device__ __forceinline__ uint32_t max4(uint4 v) {
-  return max(max(order_key(v.x), order_key(v.y)), max(order_key(v.z), order_key(v.w)));
-}
-
-// Append `pair` where `take`, in no particular order: a ballot, one shared
-// atomic a warp. Every lane of the warp calls it.
-__device__ __forceinline__ void append(bool take, uint64_t pair, uint64_t* buf, int* count) {
-  const unsigned b = __ballot_sync(kFull, take);
-  if (b == 0) return;
-  const int lane = threadIdx.x & 31;
-  int base = 0;
-  if (lane == 0) base = atomicAdd(count, __popc(b));
-  base = __shfl_sync(kFull, base, 0);
-  if (take) {
-    const int pos = base + __popc(b & ((1u << lane) - 1u));
-    if (pos < kSortCap) buf[pos] = pair;
-  }
-}
-
-// Every value of the row whose key is >= lo (> lo where strict) into buf;
-// *count (0 on entry, read after the next barrier) counts them all, also
-// beyond kSortCap. 16-byte loads where `vec` (the row is 16-byte aligned and
-// may be read in whole 16-byte words: a staged row, padded to them, or a
-// global one with G % 4 == 0), else 4-byte loads.
-__device__ void compact(const uint32_t* row, int G, bool vec, uint32_t lo, bool strict,
-                        uint64_t* buf, int* count) {
-  const int lane = threadIdx.x & 31;
-  if (!vec) {
-    for (int i = threadIdx.x; i - lane < G; i += kThreads) {
-      const uint32_t key = i < G ? order_key(row[i]) : 0;
-      append(i < G && (strict ? key > lo : key >= lo), pair_of(key, i), buf, count);
-    }
-    return;
-  }
-  const uint4* row4 = reinterpret_cast<const uint4*>(row);
-  const int n4 = (G + 3) >> 2;
-  for (int c = threadIdx.x; c - lane < n4; c += kThreads) {
-    const uint4 v = c < n4 ? row4[c] : make_uint4(0, 0, 0, 0);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 4 * c + e;
-      const uint32_t key = order_key(w[e]);
-      const bool take = col < G && (strict ? key > lo : key >= lo);
-      append(take, pair_of(key, col), buf, count);
-    }
-  }
-}
 
 // A load of the first pass: streaming where the row is staged (it is read
 // from HBM once), cached where it is read again from global memory.
@@ -127,35 +50,6 @@ template <bool kStaged, typename V>
 __device__ __forceinline__ V first_load(const V* p) {
   if constexpr (kStaged) return __ldcs(p);
   else return *p;
-}
-
-// Sort the n pairs of buf descending (bitonic, padded to a power of two
-// with 0, below every pair) and write the first k: values from the row,
-// columns as int64.
-__device__ void sort_and_write(uint64_t* buf, int n, int k, const uint32_t* row,
-                               float* vals, long long* cols) {
-  int P = 1;
-  while (P < n) P <<= 1;
-  for (int i = n + threadIdx.x; i < P; i += kThreads) buf[i] = 0;
-  __syncthreads();
-  for (int size = 2; size <= P; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (P >> 1); t += kThreads) {
-        const int i = 2 * t - (t & (stride - 1));
-        const uint64_t a = buf[i], b = buf[i + stride];
-        if ((a < b) == ((i & size) == 0)) {
-          buf[i] = b;
-          buf[i + stride] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < k; i += kThreads) {
-    const int col = static_cast<int>(~static_cast<uint32_t>(buf[i]));
-    vals[i] = __uint_as_float(row[col]);
-    cols[i] = col;
-  }
 }
 
 // kStaged: the row is staged in shared memory (G <= kMaxG); otherwise every
@@ -168,20 +62,15 @@ __global__ void __launch_bounds__(kThreads, 2) row_topk_kernel(
   uint32_t* stage = reinterpret_cast<uint32_t*>(smem);
   uint64_t* buf = reinterpret_cast<uint64_t*>(
       smem + (kStaged ? 4 * static_cast<size_t>((G + 3) & ~3) : 0));
-  uint32_t* hist = reinterpret_cast<uint32_t*>(buf);
-  __shared__ int s_count;
-  __shared__ uint32_t s_tau[kWarps];
-  __shared__ int s_part[2][kWarps];
-  __shared__ int s_sel[3];
+  __shared__ Shared sh;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const size_t r = blockIdx.x;
   const uint32_t* src = reinterpret_cast<const uint32_t*>(x) + r * G;
   const uint32_t* row = kStaged ? stage : src;
   const bool row_vec = kStaged || vec;
   float* vals = out_vals + r * k;
   long long* cols = out_cols + r * k;
-  if (tid == 0) s_count = 0;
 
   // 1. stage the row (or only read it); each thread's largest key
   uint32_t mx = 0;
@@ -216,108 +105,10 @@ __global__ void __launch_bounds__(kThreads, 2) row_topk_kernel(
     }
   }
 
-  // 2. tau: the least of the warps' q-th largest thread maxima (0 = none).
-  // A thread with no value has mx 0, the least key, so it can only lower tau.
-  const int q = (k + kWarps - 1) / kWarps;
-  if (q <= 32) {
-    uint32_t v = mx;
-    for (int size = 2; size <= 32; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        const uint32_t o = __shfl_xor_sync(kFull, v, stride);
-        const bool low = (lane & stride) == 0, desc = (lane & size) == 0;
-        v = (low == desc) ? max(v, o) : min(v, o);
-      }
-    }
-    v = __shfl_sync(kFull, v, q - 1);
-    if (lane == 0) s_tau[warp] = v;
-  } else if (lane == 0) {
-    s_tau[warp] = 0;
-  }
-  __syncthreads();
-  uint32_t tau = s_tau[0];
-  for (int w = 1; w < kWarps; ++w) tau = min(tau, s_tau[w]);
-
-  // 3. the values >= tau; done if they fit the buffer
-  compact(row, G, row_vec, tau, false, buf, &s_count);
-  __syncthreads();
-  if (s_count <= kSortCap) {
-    sort_and_write(buf, s_count, k, row, vals, cols);
-    return;
-  }
-
-  // 4. radix select among the keys >= tau, 8 bits a pass from the top
-  uint32_t prefix = 0, mask = 0;
-  int rem = k, above = 0;  // keys still wanted under the prefix; keys above it
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < kWarps * kBins; i += kThreads) hist[i] = 0;
-    __syncthreads();
-    uint32_t* h = hist + warp * kBins;
-    for (int i = tid; i < G; i += kThreads) {
-      const uint32_t key = order_key(row[i]);
-      if (key >= tau && (key & mask) == prefix) atomicAdd(&h[(key >> shift) & (kBins - 1)], 1u);
-    }
-    __syncthreads();
-    // the bin holding the rem-th key from the top: bins descending over
-    // the first 8 warps, a scan of their counts
-    int cnt = 0, incl = 0;
-    if (warp < kBins / 32) {
-      const int bin = kBins - 1 - tid;
-      for (int w = 0; w < kWarps; ++w) cnt += hist[w * kBins + bin];
-      incl = cnt;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int n = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += n;
-      }
-      if (lane == 31) s_part[0][warp] = incl;
-    }
-    __syncthreads();
-    if (warp < kBins / 32) {
-      int excl = incl - cnt;
-      for (int w = 0; w < warp; ++w) excl += s_part[0][w];
-      if (excl < rem && rem <= excl + cnt) {
-        s_sel[0] = kBins - 1 - tid;
-        s_sel[1] = excl;
-        s_sel[2] = cnt;
-      }
-    }
-    if (tid == 0) s_count = 0;
-    __syncthreads();
-    const int bin = s_sel[0], in_bin = s_sel[2];
-    above += s_sel[1];
-    rem -= s_sel[1];
-    prefix |= static_cast<uint32_t>(bin) << shift;
-    mask |= static_cast<uint32_t>(kBins - 1) << shift;
-    if (above + in_bin <= kSortCap) {  // the keys at or above the prefix fit
-      compact(row, G, row_vec, max(tau, prefix), false, buf, &s_count);
-      __syncthreads();
-      sort_and_write(buf, s_count, k, row, vals, cols);
-      return;
-    }
-  }
-
-  // every bit chosen: prefix is the k-th key, `above` keys lie above it and
-  // the first `rem` keys equal to it, in column order, complete the k
-  const uint32_t kth = prefix;
-  if (kth != 0xffffffffu) compact(row, G, row_vec, kth, true, buf, &s_count);
-  int taken = 0;
-  for (int i0 = 0, round = 0; i0 < G && taken < rem; i0 += kThreads, ++round) {
-    const int i = i0 + tid;
-    const bool eq = i < G && order_key(row[i]) == kth;
-    const unsigned b = __ballot_sync(kFull, eq);
-    if (lane == 0) s_part[round & 1][warp] = __popc(b);
-    __syncthreads();
-    int before = 0, total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = s_part[round & 1][w];
-      before += w < warp ? c : 0;
-      total += c;
-    }
-    const int rank = taken + before + __popc(b & ((1u << lane) - 1u));
-    if (eq && rank < rem) buf[above + rank] = pair_of(kth, i);
-    taken += total;
-  }
-  __syncthreads();
-  sort_and_write(buf, k, k, row, vals, cols);
+  select_topk(row, G, k, row_vec, mx, buf, sh, [&](int i, int col) {
+    vals[i] = __uint_as_float(row[col]);
+    cols[i] = col;
+  });
 }
 
 }  // namespace

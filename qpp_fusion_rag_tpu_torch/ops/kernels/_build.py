@@ -61,6 +61,10 @@ SIGNATURES = {
     "qfr_streaming_group_max": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # x, M, G, k, vec, vals, cols, stream
     "qfr_row_topk": (_P, _I, _I, _I, _I, _P, _P, _P),
+    # sids, svals, B, M, k, vec, scratch (nullable), scores, ids, stream
+    "qfr_run_sums_topk": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # M -> floats of global scratch a row (0: staged)
+    "qfr_run_sums_scratch": (_I,),
 }
 
 

@@ -54,12 +54,12 @@ from qpp_fusion_rag_tpu_torch.ops.kernels.bitonic import (
     bitonic_topp_rows,
 )
 from qpp_fusion_rag_tpu_torch.ops.kernels.row_gather import rescore_match
+from qpp_fusion_rag_tpu_torch.ops.kernels.run_sums import run_sums_topk
 from qpp_fusion_rag_tpu_torch.ops.kernels.window_gather import gather_windows
 from qpp_fusion_rag_tpu_torch.ops.segment import (
     SENTINEL,
     run_totals_presorted,
     segmented_sums_presorted_i32,
-    segmented_topk_presorted,
     topk_first,
 )
 
@@ -489,17 +489,16 @@ def _packed_contributions(packed, offsets, term_scales, q_terms, q_weights, p_ca
 
 def _segmented_scores(docs, vals, k: int):
     """The pair-sort engines' sums and top-k: segment.segmented_topk's
-    stable id sort in span ``sparse.pair_sort``, then its
-    segmented_topk_presorted (the f32 run totals and their exact top-k) in
-    span ``sparse.run_sums``; fusion's own call of segmented_topk carries
-    neither. -> (scores [B, kk] desc, ids [B, kk], -inf / -1 pad),
-    kk = min(k, M)."""
+    stable id sort in span ``sparse.pair_sort``, then the f32 run totals and
+    their exact top-k in span ``sparse.run_sums`` (run_sums_topk: one kernel
+    launch on the card, segment.segmented_topk_presorted on the CPU, the
+    same bits); fusion's own call of segmented_topk carries neither.
+    -> (scores [B, kk] desc, ids [B, kk], -inf / -1 pad), kk = min(k, M)."""
     with T.span("sparse.pair_sort"):
         sids, order = torch.sort(docs, dim=-1, stable=True)
         svals = torch.gather(vals, -1, order)
     with T.span("sparse.run_sums"):
-        ids, scores, _ = segmented_topk_presorted(sids, svals, k)
-    return scores, ids
+        return run_sums_topk(sids, svals, k)
 
 
 def sparse_score_topk(

@@ -96,8 +96,11 @@ def test_wrapper_refuses_a_negative_k():
 
 
 def test_max_k_is_the_kernel_s():
-    """MAX_K is the kernel's kMaxK, the pairs its sort buffer holds."""
-    src = (ROOT / "qpp_fusion_rag_tpu_torch" / "csrc" / "row_topk.cu").read_text()
+    """MAX_K is the kernel's kMaxK, the pairs its sort buffer holds (in the
+    selection row_topk.cu shares with run_sums_topk.cu)."""
+    csrc = ROOT / "qpp_fusion_rag_tpu_torch" / "csrc"
+    assert '#include "row_select.cuh"' in (csrc / "row_topk.cu").read_text()
+    src = (csrc / "row_select.cuh").read_text()
     assert f"constexpr int kSortCap = {MAX_K};" in src
     assert "constexpr int kMaxK = kSortCap;" in src
 

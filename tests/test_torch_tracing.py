@@ -6,6 +6,7 @@ the end, which skip without a card: there a host -> CUDA move is staged
 through pinned memory without a wait, and the steps' outputs are the same
 bits from host and from card inputs. The file imports no JAX."""
 
+import time
 from collections import Counter
 
 import numpy as np
@@ -505,6 +506,34 @@ def test_sort_step_on_the_card_spans_and_bits(card_kit, monkeypatch):
     parent = fn(*inputs)
     for a, b, c in zip(on, off, parent):
         assert a.dtype == b.dtype == c.dtype and torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+def test_sort_step_on_the_card_launches_the_run_sums_kernel(card_kit, monkeypatch):
+    """On the card a traced sort-mode step launches the run sums kernel
+    once a sparse view, each call inside that view's sparse.run_sums span,
+    and its outputs stay the bits of the step with its pair sums on one
+    segmented_topk."""
+    fn, inputs = card_kit["ensemble.sort"]
+    real, calls = SP.run_sums_topk, []
+
+    def spy(sids, svals, k):
+        calls.append(time.perf_counter_ns())
+        return real(sids, svals, k)
+
+    monkeypatch.setattr(SP, "run_sums_topk", spy)
+    fn(*inputs)
+    calls.clear()
+    launches = T.LAUNCHES["run_sums_topk"]
+    on, kept = _traced_on_card(fn, inputs)
+    assert T.LAUNCHES["run_sums_topk"] - launches == 2 == len(calls)
+    run_sums = sorted((s for s in kept if s.name == "sparse.run_sums"), key=lambda s: s.start_ns)
+    assert len(run_sums) == 2
+    assert all(s.start_ns <= t <= s.end_ns for s, t in zip(run_sums, sorted(calls)))
+    monkeypatch.setattr(SP, "_segmented_scores", _parent_route)
+    parent = fn(*inputs)
+    for a, c in zip(on, parent):
+        assert a.dtype == c.dtype and torch.equal(a, c)
 
 
 @pytest.mark.cuda
