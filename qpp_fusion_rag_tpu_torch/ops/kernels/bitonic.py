@@ -35,12 +35,20 @@ import torch
 
 from qpp_fusion_rag_tpu_torch.ops.kernels import LAUNCHES, _build
 from qpp_fusion_rag_tpu_torch.ops.segment import segmented_sums_presorted_i32
+from qpp_fusion_rag_tpu_torch.tracing import K2_CLUSTERS
 
 MAX_ROW = 65536   # K2 / K5: four CTAs of 16,384 keys; K4 at bs >= 4096: two of 32,768
+ROW_PART = 16384  # K2 / K5: keys one CTA sorts (csrc/bitonic_rows.cuh kPart)
 
 
 def _padded_len(M: int) -> int:
     return 1 << max(1, (M - 1).bit_length())
+
+
+def cluster_ctas(M: int) -> int:
+    """The CTAs that K2 and K5 give one row of M keys: 1 up to ROW_PART
+    keys, else the padded row over ROW_PART (a cluster of 2 or 4)."""
+    return max(1, _padded_len(M) // ROW_PART)
 
 
 def _check_keys(keys: torch.Tensor, start_block: int) -> None:
@@ -107,6 +115,7 @@ def bitonic_segsum_rows(keys: torch.Tensor, start_block: int = 2,
                                     _build.stream_of(keys))
     _build.check(lib, rc, "bitonic_segsum_rows")
     LAUNCHES["bitonic_segsum_rows"] += 1
+    K2_CLUSTERS[cluster_ctas(M)] += 1
     return sums, sids
 
 

@@ -13,6 +13,9 @@ shared no-op context: the port has no other switch for tracing.
 Counters, always on (plain integer adds):
   LAUNCHES   kernel launches by kernel name; each wrapper under
              ``ops/kernels`` adds one where it launches its kernel;
+  K2_CLUSTERS  K2 (``bitonic_segsum_rows``) launches by the CTAs that
+             sort one row: 1 up to 16,384 keys, else the padded row over
+             16,384 (a cluster of 2 or 4);
   STAGED     host -> CUDA moves by site that went through pinned
              staging (``to_device``) and did not wait;
   SYNCS      blocking host <-> device moves and reads by site;
@@ -40,6 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 LAUNCHES: Counter = Counter()
+K2_CLUSTERS: Counter = Counter()
 STAGED: Counter = Counter()
 SYNCS: Counter = Counter()
 REPLAYS: Counter = Counter()

@@ -200,6 +200,52 @@ def test_k2_one_run_across_both_halves(cuda):
     assert int(sums[0, -1]) == int(keys[0].bitwise_and(0xFF).sum())
 
 
+HOTPOT_DOCS = 5_233_329     # BEIR HotpotQA's passages: ids past 2^22, int8 rows past 2^31 bytes
+
+
+def _window_keys(B, tq, cap, lo, hi, gen, device):
+    """[B, tq * cap] presorted q8 keys as the q8 step forms them: per window
+    up to cap postings of doc ids in [lo, hi) (doc << 8 | q8), ascending
+    with an INT32_MAX pad in even slots, descending with an INT32_MIN pad
+    in odd ones."""
+    docs = torch.randint(lo, hi, (B, tq, cap), generator=gen, device=device, dtype=torch.int64)
+    q8 = torch.randint(0, 256, (B, tq, cap), generator=gen, device=device, dtype=torch.int64)
+    n = torch.randint(0, cap + 1, (B, tq, 1), generator=gen, device=device)
+    real = torch.arange(cap, device=device) < n
+    odd = (torch.arange(tq, device=device) % 2 == 1)[None, :, None]
+    pad = torch.where(odd, INT32_MIN, INT32_MAX)
+    keys = torch.where(real, (docs << 8) | q8, pad)
+    asc = torch.sort(keys, dim=-1).values
+    desc = torch.sort(keys, dim=-1, descending=True).values
+    return torch.where(odd, desc, asc).to(torch.int32).reshape(B, tq * cap).contiguous()
+
+
+@pytest.mark.parametrize("tq,ctas", [(16, 2), (32, 4)])
+def test_k2_hotpotqa_rows_with_ids_past_2_22_match_plain(cuda, tq, ctas):
+    """K2 at the HotpotQA cell's shapes: 1024 rows of 16 or 32 presorted
+    windows of 2048 keys (32,768 and 65,536 keys: clusters of two and four
+    CTAs), doc ids in [2^22, 5,233,329), so bit 30 of every real key is
+    set, just under the sign bit and the 0x7FFFFF pad id. Half the rows
+    draw from the last 3,000 ids, so that runs are long and cross the
+    cluster's parts. Bit-equal to the plain version."""
+    from qpp_fusion_rag_tpu_torch.tracing import K2_CLUSTERS
+
+    g = torch.Generator(device=cuda).manual_seed(tq)
+    wide = _window_keys(512, tq, 2048, 1 << 22, HOTPOT_DOCS, g, cuda)
+    narrow = _window_keys(512, tq, 2048, HOTPOT_DOCS - 3000, HOTPOT_DOCS, g, cuda)
+    keys = torch.cat([wide, narrow])
+    real = (keys != INT32_MAX) & (keys != INT32_MIN)
+    assert bool(((keys >> 30) == 1)[real].all())
+    before = K2_CLUSTERS[ctas]
+    sums, sids = _counted("bitonic_segsum_rows", lambda: bitonic.bitonic_segsum_rows(
+        keys, start_block=4096, max_run=tq))
+    assert K2_CLUSTERS[ctas] == before + 1
+    r_sums, r_sids = bitonic.bitonic_segsum_rows_plain(keys)
+    assert torch.equal(sids, r_sids)
+    assert torch.equal(sums, r_sums)
+    assert int(sids[sids < 0x7FFFFF].max()) == HOTPOT_DOCS - 1
+
+
 def test_q8_rows_beyond_65536_keys_take_the_sort_route(cuda):
     """sparse_score_topk_q8 at M = 32 x 2048 = 65,536 launches K2; at
     M = 64 x 2048 = 131,072 it launches no K2 (torch.sort + segmented sums).
@@ -482,6 +528,36 @@ def test_dense_topk_int8_matches_cpu(cuda):
     scale = scale[:, 0].contiguous()
     s_d, i_d = dense_topk.pallas_dense_topk_int8(q.to(cuda), rows.to(cuda), scale.to(cuda), k=100)
     s_c, i_c = dense_topk.pallas_dense_topk_int8(q, rows, scale, k=100)
+    assert torch.equal(i_d.cpu(), i_c)
+    assert torch.equal(s_d.cpu(), s_c)
+
+
+def test_k1_and_merge_past_byte_2_31_match_plain(cuda):
+    """K1 and its merge (pallas_dense_topk_int8) over the HotpotQA cell's
+    5,233,329 x 768 int8 rows, 4.02 GB, against the plain version: the
+    group maxima bit for bit, and the top-k ids and scores of the CPU
+    route. Planted queries copy the row that holds byte 2^31, rows past it,
+    the first id past 2^22 and both ends of the last, ragged group of 49
+    docs; each finds its own row first. Random queries fill the batch."""
+    N, D = HOTPOT_DOCS, 768
+    planted = [(1 << 31) // D, (1 << 31) // D + 1, 3_500_001, 1 << 22, N - 49, N - 1]
+    g = torch.Generator(device=cuda).manual_seed(31)
+    rows = torch.randint(-127, 128, (N, D), generator=g, device=cuda, dtype=torch.int8)
+    rows[planted, 0] = 127                    # each planted query quantizes to its row
+    scale = torch.rand(N, generator=g, device=cuda) * 1e-3 + 0.01
+    q = torch.cat([rows[planted].to(torch.float32),
+                   torch.randn(130 - len(planted), D, generator=g, device=cuda)])
+    q_int, _ = dense_topk.quantize_rows(q)
+    assert torch.equal(q_int[:len(planted)], rows[planted])
+    vals = _counted("group_max_packed_int8", lambda: dense_topk.group_max_packed_int8(
+        q_int, rows, scale))
+    assert vals.shape == (130, -(-N // 128))
+    ref = dense_topk.group_max_packed_int8_plain(q_int, rows, scale, N)
+    assert torch.equal(vals.view(torch.int32), ref.view(torch.int32))
+    del vals, ref
+    s_d, i_d = dense_topk.pallas_dense_topk_int8(q, rows, scale, k=100)
+    assert i_d[:len(planted), 0].tolist() == planted
+    s_c, i_c = dense_topk.pallas_dense_topk_int8(q.cpu(), rows.cpu(), scale.cpu(), k=100)
     assert torch.equal(i_d.cpu(), i_c)
     assert torch.equal(s_d.cpu(), s_c)
 

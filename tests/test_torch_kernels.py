@@ -72,10 +72,10 @@ def test_k3_refuses_bad_inputs():
 
 # ---------------------------------------------------------------- K2 ------
 
-def _segsum_keys(M, presorted, rng):
+def _segsum_keys(M, presorted, rng, lo=0):
     """[8, M] keys: random (start_block 2) or presorted alternating cap-blocks
-    of unique docs with INT32_MAX / INT32_MIN pads (start_block 2*cap). Every
-    real doc run is at most Tq long."""
+    of unique docs (from [lo, lo + 3000)) with INT32_MAX / INT32_MIN pads
+    (start_block 2*cap). Every real doc run is at most Tq long."""
     B = 8
     if not presorted:
         docs = rng.integers(0, 5000, size=(B, M)).astype(np.int64)
@@ -90,7 +90,7 @@ def _segsum_keys(M, presorted, rng):
     for b in range(B):
         for t in range(tq):
             n = int(rng.integers(0, cap + 1))
-            d = np.sort(rng.choice(3000, n, replace=False)).astype(np.int64)
+            d = lo + np.sort(rng.choice(3000, n, replace=False)).astype(np.int64)
             w = (d << 8) | rng.integers(0, 256, n)
             pad = INT32_MIN if t % 2 else INT32_MAX
             w = np.concatenate([w[::-1] if t % 2 else w, np.full(cap - n, pad)])
@@ -114,6 +114,24 @@ def test_k2_plain_matches_pallas(M, presorted, plus_one, max_run_set):
     np.testing.assert_array_equal(sids.numpy(), j_sids)
     real = j_sids < 0x7FFFFF if max_run_set else np.ones_like(j_sids, bool)
     np.testing.assert_array_equal(sums.numpy()[real], j_sums[real])
+
+
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_k2_plain_matches_pallas_on_ids_past_2_22(plus_one):
+    """Presorted keys of doc ids up to BEIR HotpotQA's last, 5,233,328: bit
+    30 of every real key is set, just under the sign bit and the 0x7FFFFF
+    pad id. The plain version equals the Pallas kernel bit for bit."""
+    rng = np.random.default_rng(23 + plus_one)
+    keys, start_block, tq = _segsum_keys(2048, True, rng, lo=5_233_329 - 3000)
+    real = (keys != INT32_MAX) & (keys != INT32_MIN)
+    assert ((keys[real] >> 30) == 1).all()
+    j_sums, j_sids = map(np.asarray, j_segsum(
+        jnp.asarray(keys), start_block=start_block, plus_one=plus_one))
+    sums, sids = bitonic.bitonic_segsum_rows(
+        torch.as_tensor(keys), start_block=start_block, plus_one=plus_one)
+    np.testing.assert_array_equal(sids.numpy(), j_sids)
+    np.testing.assert_array_equal(sums.numpy(), j_sums)
+    assert j_sids[j_sids < 0x7FFFFF].max() >= 5_233_329 - 3
 
 
 def test_k2_plain_exact_on_any_row_length():

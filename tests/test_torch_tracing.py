@@ -27,7 +27,7 @@ STEP_SPANS = {"ensemble": "ensemble_step", "ensemble.sort": "ensemble_step",
 SORT_SPANS = ["sparse.pairs", "sparse.pair_sort", "sparse.run_sums"]
 
 
-def _kit(device, routes=("int8",)):
+def _kit(device, routes=("int8",), cap=CAP, terms=(8, 16)):
     """-> {kind: (step, inputs)}, step(*inputs) one served step with its
     indexes and corpus on `device`: "ensemble", the q8 ensemble step over
     presorted BM25 / SPLADE postings (as the benchmark serves it),
@@ -35,13 +35,15 @@ def _kit(device, routes=("int8",)):
     postings in the plain layout, and "flagship" on the int8 route
     ("flagship.<route>" for each other route of `routes`: bf16, plain).
     Query terms, weights and text features are host tensors, as the
-    benchmark hands them over; embeddings and projections lie on `device`."""
+    benchmark hands them over; embeddings and projections lie on `device`.
+    The sparse views take windows of `cap` postings and `terms` (BM25,
+    SPLADE) query terms."""
     arrays, plain, inputs = {}, {}, []
-    for name, vocab, avg, seed, tq in (("bm25", 1500, 30.0, 0, 8),
-                                       ("splade", 1000, 40.0, 7, 16)):
+    for (name, vocab, avg, seed), tq in zip((("bm25", 1500, 30.0, 0),
+                                             ("splade", 1000, 40.0, 7)), terms):
         off, docs, w, _ = zipf_bm25_csr(N, vocab_size=vocab, avg_doc_len=avg, seed=seed)
         scales = SP.term_scales_from_csr(w, off)
-        packed, off2, sc = SP.pack_postings_presorted(docs, w, off, cap=CAP, scales=scales)
+        packed, off2, sc = SP.pack_postings_presorted(docs, w, off, cap=cap, scales=scales)
         arrays.update({f"{name}_packed": torch.from_numpy(packed).to(device),
                        f"{name}_offsets": torch.from_numpy(off2.astype(np.int32)).to(device),
                        f"{name}_scales": torch.from_numpy(sc).to(device)})
@@ -63,10 +65,10 @@ def _kit(device, routes=("int8",)):
     view_proj = view_proj.to(device)
     tf = torch.tensor([[6.0, 6.0, 9.0, 5.0]]).repeat(B, 1)
     kit = {"ensemble": (lambda *a: EM.ensemble_retrieval_step(
-        idx, *a, k=K, k_out=K, p_cap=CAP, sparse_mode="q8", sparse_presorted=True),
+        idx, *a, k=K, k_out=K, p_cap=cap, sparse_mode="q8", sparse_presorted=True),
         (*inputs, q, rerank_proj.to(device), tf)),
         "ensemble.sort": (lambda *a: EM.ensemble_retrieval_step(
-            idx_plain, *a, k=K, k_out=K, p_cap=CAP), (*inputs, q, rerank_proj.to(device), tf))}
+            idx_plain, *a, k=K, k_out=K, p_cap=cap), (*inputs, q, rerank_proj.to(device), tf))}
     corpora = {"int8": (rows, {"corpus_scale": d_scale}),
                "bf16": (corpus.to(torch.bfloat16).to(device), {"use_pallas": True}),
                "plain": (corpus.to(device), {})}
@@ -319,6 +321,24 @@ def test_one_launch_counter():
     assert dense_topk.LAUNCHES is T.LAUNCHES
 
 
+@pytest.mark.parametrize("M,ctas", [(1, 1), (2048, 1), (16384, 1), (16385, 2), (32768, 2),
+                                    (32769, 4), (65536, 4)])
+def test_k2_cluster_size_is_the_padded_row_over_16384_keys(M, ctas):
+    from qpp_fusion_rag_tpu_torch.ops.kernels import bitonic
+
+    assert bitonic.cluster_ctas(M) == ctas
+
+
+def test_k2_plain_route_counts_no_cluster():
+    """A CPU row takes K2's plain version: no launch, no route counted."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels import bitonic
+
+    before, launches = Counter(T.K2_CLUSTERS), T.LAUNCHES["bitonic_segsum_rows"]
+    bitonic.bitonic_segsum_rows(torch.zeros((2, 32768), dtype=torch.int32))
+    assert T.K2_CLUSTERS == before
+    assert T.LAUNCHES["bitonic_segsum_rows"] == launches
+
+
 def test_kept_spans_are_bounded(monkeypatch):
     monkeypatch.setattr(T, "_KEPT", T.deque(maxlen=3))
     with profile(activities=[ProfilerActivity.CPU]):
@@ -548,3 +568,19 @@ def test_eager_fusion_on_the_card_carries_no_sparse_span(card_kit, monkeypatch):
     assert _children(kept, "fusion.combine") == []
     assert {s.parent for s in kept if s.name.startswith("sparse.")} == {"sparse_view"}
     assert "qpp.mean" in {s.name for s in kept}            # the eager tail ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms,ctas", [((8, 16), {1: 1, 2: 1}), ((16, 32), {2: 1, 4: 1})])
+def test_q8_step_k2_route_follows_the_query_length(card, terms, ctas):
+    """At p_cap 2048 a q8 ensemble step with NQ's 8 / 16 query terms sorts
+    its BM25 rows on one CTA and its SPLADE rows on a cluster of two; with
+    HotpotQA's 16 / 32 terms on clusters of two and four (65,536 keys):
+    one K2 launch a view, counted by the CTAs a row takes."""
+    fn, inputs = _kit(card, cap=2048, terms=terms)["ensemble"]
+    fn(*inputs)
+    torch.cuda.synchronize()
+    before = Counter(T.K2_CLUSTERS)
+    fn(*inputs)
+    torch.cuda.synchronize()
+    assert dict(T.K2_CLUSTERS - before) == ctas
