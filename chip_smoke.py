@@ -32,7 +32,9 @@ batches in the default "sort" mode and one window-rescore step
 (sparse_candidates 4) over the impact-ordered layout, one q8r BM25 call at
 8192 candidates (the pool's full-sort branch), and one q8 and one q8r SPLADE
 call of 32-term queries (rows of 65,536 keys: K2 on four-CTA clusters), with
-K2, K4 and K5 then timed alone at those rows.
+K2, K4 and K5 then timed alone at those rows, and q8's top-k kernel (M3)
+held to its plain version and timed on the run sums of batch 0's BM25 and
+SPLADE queries and of the 32-term ones.
 Between them (phase 6g) it drives the sparse index layer at full size:
 SparseIndex over the BM25 CSR (docnos "d<i>", queries "q<i>" through the
 query_encoder hook) with its lazy device arrays timed, search on the
@@ -80,7 +82,8 @@ argmax-QPP baselines, and stage 04 (train_fusion_models, per_retriever and
 mlp) with the learned method served from its pickle; QPP, fusion and
 metrics are held to CPU copies. Every
 phase raises on failure and prints its seconds. The line before the last
-is a JSON summary of the ten kernels and the row top-k; the last line is
+is a JSON summary of the ten kernels, the row top-k (M1) and the run-sum
+kernels (M2, M3); the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -877,6 +880,36 @@ def run_sums_vs_plain(idx, batch):
             f"{r['plain_ms']:.3f} ms, topk_first of the totals {r['library_ms']:.3f} ms")
         out[f"{B}x{M}"] = r
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            out[key] += r[key]
+    return out
+
+
+def q8_topk_vs_plain(rows):
+    """q8's selection on run sums K2 made: rows is (sums, sids, wmax_col, tq)
+    for each view (batch 0's BM25 and SPLADE queries, 8 x P_CAP and 16 x
+    P_CAP sums a row, and the 32-term SPLADE queries, LONG_TQ x P_CAP), k
+    100: q8_topk bit-equal to q8_topk_plain (topk_first over the scores) on
+    the card, and timed beside its bound (bytes, each once: 4 B a sum read,
+    12 B a winner) and the plain version. -> the views summed {ms,
+    plain_ms, bound_ms, bound_by, max_abs_err}, each view's under "<B>x<M>"."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels.q8_topk import q8_topk, q8_topk_plain
+
+    out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes"}
+    for sums, sids, wmax, tq in rows:
+        B, M = sums.shape
+        (gs, gi), (rs, ri) = q8_topk(sums, sids, wmax, TOP_K, tq), \
+            q8_topk_plain(sums, sids, wmax, TOP_K)
+        if not (torch.equal(gi, ri) and torch.equal(gs.view(torch.int32), rs.view(torch.int32))):
+            raise AssertionError(f"q8_topk {B} x {M} != q8_topk_plain on the card")
+        b_ms, _ = bound(4 * B * M + 12 * B * TOP_K, 0.0, "int8")
+        r = {"max_abs_err": 0.0, "ms": median_ms(lambda: q8_topk(sums, sids, wmax, TOP_K, tq), 20),
+             "plain_ms": median_ms(lambda: q8_topk_plain(sums, sids, wmax, TOP_K), 5),
+             "bound_ms": b_ms, "bound_by": "bytes"}
+        log(f"  q8_topk {B} x {M}, k {TOP_K}: bit-equal to q8_topk_plain; kernel "
+            f"{r['ms']:.4f} ms, bound {b_ms:.4f} ms (bytes), plain version "
+            f"{r['plain_ms']:.3f} ms")
+        out[f"{B}x{M}"] = r
+        for key in ("ms", "plain_ms", "bound_ms"):
             out[key] += r[key]
     return out
 
@@ -1981,7 +2014,7 @@ def main() -> None:
     q8_kernels = ("group_max_packed_int8", "row_topk", "bitonic_segsum_rows", "gather_windows")
     log(f"[5] q8 path: ensemble_retrieval_step (q8, presorted), {len(batches)} batches of "
         f"{BATCH} queries, {N_DOCS} docs")
-    q8_launches, _ = run_path("q8", idx, batches, q8_kernels, sparse_mode="q8")
+    q8_launches, _ = run_path("q8", idx, batches, q8_kernels + ("q8_topk",), sparse_mode="q8")
 
     q8r_kernels = q8_kernels + ("bitonic_topp_rows", "rescore_match")
     log(f"[6] q8r path: ensemble_retrieval_step (q8r, {Q8R_CANDIDATES} candidates, dense "
@@ -2054,7 +2087,7 @@ def main() -> None:
                  presorted=True)
     long_out, long_launches, long_ms = {}, {}, {}
     for mode, expect, call in (
-            ("q8", ("bitonic_segsum_rows",), lambda: S.sparse_score_topk_q8(
+            ("q8", ("bitonic_segsum_rows", "q8_topk"), lambda: S.sparse_score_topk_q8(
                 *splade_rs[:3], lt, lw, k=TOP_K, p_cap=P_CAP, presorted=True)),
             ("q8r", ("bitonic_segsum_rows", "bitonic_topp_rows", "rescore_match"),
              lambda: S.sparse_score_topk_q8_rescored(*splade_rs, lt, lw, **rs_kw))):
@@ -2064,9 +2097,13 @@ def main() -> None:
             raise AssertionError(f"the long-row {mode} call found no documents")
     packed, offsets, scales = view_args(idx_rs, "splade")
     long_keys, _, long_sb = S._q8_keys(packed, offsets, scales, lt, lw, P_CAP, presorted=True)
-    long_sums, _, _ = S._q8_row_sums(packed, offsets, scales, lt, lw, P_CAP, presorted=True)
+    long_sums, long_sids, long_wmax = S._q8_row_sums(packed, offsets, scales, lt, lw, P_CAP,
+                                                     presorted=True)
     long_row_kernels(res, long_keys, long_sb, S._pool_keys(long_sums), LONG_TQ)
-    del long_keys, long_sums
+    q8_rows = [(*S._q8_row_sums(*view_args(idx, view), terms, qw, P_CAP, presorted=True),
+                terms.shape[1]) for view, terms, qw in (("bm25", bt, bq), ("splade", st, sq))]
+    res["q8_topk"] = q8_topk_vs_plain(q8_rows + [(long_sums, long_sids, long_wmax, LONG_TQ)])
+    del long_keys, long_sums, long_sids, long_wmax, q8_rows
 
     log(f"[8] cross-check of the kernel views for {CROSS_Q} queries on CPU copies")
     for view, terms, qw in (("bm25", bt, bq), ("splade", st, sq)):
@@ -2230,7 +2267,8 @@ def main() -> None:
                                     "streaming"),
             "row_topk": (src + "row_topk.cu", "none (lax.top_k: XLA's merge)", "flagship_int8"),
             "run_sums_topk": (src + "run_sums_topk.cu",
-                              "none (the \"sort\" engine: XLA's cumsum and lax.top_k)", "sort")}
+                              "none (the \"sort\" engine: XLA's cumsum and lax.top_k)", "sort"),
+            "q8_topk": (src + "q8_topk.cu", "none (q8's lax.top_k / approx_max_k: XLA's)", "q8")}
     paths = {"q8": q8_launches, "q8r": q8r_launches, "q8c": q8c_launches,
              "sort": sort_launches, "window_rescore": win_launches, "q8r_fallback": fb_launches,
              "splade_q8_tq32": long_launches["q8"], "splade_q8r_tq32": long_launches["q8r"],

@@ -27,7 +27,8 @@
 //     keys above the k-th (fewer than k) go into the buffer and the first k
 //     minus those keys equal to it in column order (a block scan) fill it.
 // The buffer holds kSortCap pairs (16 KB), so k is at most that; the
-// histograms share it.
+// histograms share it. q8_topk.cu takes steps 2 and 3's pieces (threshold,
+// append, sort_and_emit) around a counting select of its own.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -112,6 +113,33 @@ __device__ void compact(const uint32_t* row, int G, bool vec, uint32_t lo, bool 
   }
 }
 
+// Step 2 (1 <= k): tau, the least of the warps' q-th largest thread maxima,
+// q = ceil(k / 16); 0 (none) where q > 32. mx is this thread's largest key
+// (0 where it has none: the least key, so it can only lower tau). At least k
+// keys of the row are >= tau. Every thread calls it; one barrier.
+__device__ __forceinline__ uint32_t threshold(uint32_t mx, int k, Shared& sh) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = (k + kWarps - 1) / kWarps;
+  if (q <= 32) {
+    uint32_t v = mx;
+    for (int size = 2; size <= 32; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const uint32_t o = __shfl_xor_sync(kFull, v, stride);
+        const bool low = (lane & stride) == 0, desc = (lane & size) == 0;
+        v = (low == desc) ? max(v, o) : min(v, o);
+      }
+    }
+    v = __shfl_sync(kFull, v, q - 1);
+    if (lane == 0) sh.tau[warp] = v;
+  } else if (lane == 0) {
+    sh.tau[warp] = 0;
+  }
+  __syncthreads();
+  uint32_t tau = sh.tau[0];
+  for (int w = 1; w < kWarps; ++w) tau = min(tau, sh.tau[w]);
+  return tau;
+}
+
 // Sort the n pairs of buf descending (bitonic, padded to a power of two
 // with 0, below every pair) and hand the first k to emit(rank, column).
 template <class Emit>
@@ -147,27 +175,7 @@ __device__ void select_topk(const uint32_t* row, int G, int k, bool row_vec, uin
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   uint32_t* hist = reinterpret_cast<uint32_t*>(buf);
   if (tid == 0) sh.count = 0;
-
-  // 2. tau: the least of the warps' q-th largest thread maxima (0 = none).
-  // A thread with no value has mx 0, the least key, so it can only lower tau.
-  const int q = (k + kWarps - 1) / kWarps;
-  if (q <= 32) {
-    uint32_t v = mx;
-    for (int size = 2; size <= 32; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        const uint32_t o = __shfl_xor_sync(kFull, v, stride);
-        const bool low = (lane & stride) == 0, desc = (lane & size) == 0;
-        v = (low == desc) ? max(v, o) : min(v, o);
-      }
-    }
-    v = __shfl_sync(kFull, v, q - 1);
-    if (lane == 0) sh.tau[warp] = v;
-  } else if (lane == 0) {
-    sh.tau[warp] = 0;
-  }
-  __syncthreads();
-  uint32_t tau = sh.tau[0];
-  for (int w = 1; w < kWarps; ++w) tau = min(tau, sh.tau[w]);
+  const uint32_t tau = threshold(mx, k, sh);
 
   // 3. the values >= tau; done if they fit the buffer
   compact(row, G, row_vec, tau, false, buf, &sh.count);

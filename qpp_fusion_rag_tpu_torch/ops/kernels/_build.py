@@ -65,6 +65,8 @@ SIGNATURES = {
     "qfr_run_sums_topk": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # M -> floats of global scratch a row (0: staged)
     "qfr_run_sums_scratch": (_I,),
+    # sums, sids, wmax, B, M, k, vec, wide, scores, ids, stream
+    "qfr_q8_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 

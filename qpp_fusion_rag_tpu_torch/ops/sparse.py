@@ -53,6 +53,7 @@ from qpp_fusion_rag_tpu_torch.ops.kernels.bitonic import (
     bitonic_sort_rows,
     bitonic_topp_rows,
 )
+from qpp_fusion_rag_tpu_torch.ops.kernels.q8_topk import q8_topk
 from qpp_fusion_rag_tpu_torch.ops.kernels.row_gather import rescore_match
 from qpp_fusion_rag_tpu_torch.ops.kernels.run_sums import run_sums_topk
 from qpp_fusion_rag_tpu_torch.ops.kernels.window_gather import gather_windows
@@ -723,11 +724,13 @@ def sparse_score_topk_q8(
     The parameters are the JAX function's, in its order. The selection:
     with exact_topk=True, kk < M, bitonic not False and _can_bitonic_pool,
     the top kk come from the bitonic pool (K4 / K5, the TPU's route and its
-    tie order: tied sums highest position first); otherwise from topk_first,
-    exact with lax.top_k's tie order, which meets the approximate contract
-    of exact_topk=False at any approx_recall. The run sums take K2 whatever
-    bitonic says: they are the same integers as JAX's lax.sort route.
-    dma_gather has no effect: K3 has no alignment rules to choose by."""
+    tie order: tied sums highest position first); otherwise from q8_topk
+    (M3: topk_first's answer, exact with lax.top_k's tie order, which meets
+    the approximate contract of exact_topk=False at any approx_recall; on
+    the card it refuses kk above MAX_K and more than MAX_TQ query terms).
+    The run sums take K2 whatever bitonic says: they are the same integers
+    as JAX's lax.sort route. dma_gather has no effect: K3 has no alignment
+    rules to choose by."""
     if not 0.0 < approx_recall <= 1.0:
         raise ValueError(f"approx_recall={approx_recall} must be in (0, 1]")
     sums, sids, wmax_col = _q8_row_sums(
@@ -742,13 +745,7 @@ def sparse_score_topk_q8(
             ok = torch.isfinite(top_vals)
             return (torch.where(ok, top_vals, float("-inf")),
                     torch.where(ok, top_ids, -1))
-        scores = torch.where(sums >= 0, sums.to(torch.float32) * wmax_col,
-                             float("-inf"))
-        top_vals, top_idx = topk_first(scores, kk)
-        top_ids = torch.gather(sids, -1, top_idx)
-        ok = torch.isfinite(top_vals)
-        return (torch.where(ok, top_vals, float("-inf")),
-                torch.where(ok, top_ids, -1))
+        return q8_topk(sums, sids, wmax_col, kk, q_terms.shape[1])
 
 
 # =============================================================================

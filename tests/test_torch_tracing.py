@@ -584,3 +584,79 @@ def test_q8_step_k2_route_follows_the_query_length(card, terms, ctas):
     fn(*inputs)
     torch.cuda.synchronize()
     assert dict(T.K2_CLUSTERS - before) == ctas
+
+
+def _q8_topk_calls(step, monkeypatch):
+    """-> the shapes of the run sums each q8_topk call of step() took."""
+    real, calls = SP.q8_topk, []
+
+    def spy(*a, **kw):
+        calls.append(tuple(a[0].shape))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(SP, "q8_topk", spy)
+    step()
+    return calls
+
+
+@pytest.mark.parametrize("kind,calls", [("ensemble", [(B, 8 * CAP), (B, 16 * CAP)]),
+                                        ("ensemble.sort", [])])
+def test_q8_step_selects_through_q8_topk_once_a_view(steps, kind, calls, monkeypatch):
+    """A q8 ensemble step selects each sparse view's top-k with one q8_topk
+    call over its run sums; the "sort" step never calls it."""
+    assert _q8_topk_calls(steps[kind], monkeypatch) == calls
+
+
+def test_q8r_step_never_calls_q8_topk(monkeypatch):
+    """q8r pools its candidates with the bitonic pool (K4), not M3."""
+    from test_torch_rank_safe import _q8r_kit
+
+    step, inputs = _q8r_kit(torch.device("cpu"))
+    assert _q8_topk_calls(lambda: step(*inputs), monkeypatch) == []
+
+
+def _q8_topk_launches(fn, inputs):
+    """-> (outputs, q8_topk launches) of one step on the card."""
+    before = T.LAUNCHES["q8_topk"]
+    out = fn(*inputs)
+    torch.cuda.synchronize()
+    return out, T.LAUNCHES["q8_topk"] - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,launches", [("ensemble", 2), ("ensemble.sort", 0)])
+def test_steps_on_the_card_launch_q8_topk_once_a_q8_view(card_kit, kind, launches,
+                                                          monkeypatch):
+    """On the card a q8 step launches M3 once a sparse view (a "sort" step
+    never), and its outputs are the bits of the step with the selection on
+    q8_topk_plain."""
+    from qpp_fusion_rag_tpu_torch.ops.kernels.q8_topk import q8_topk_plain
+
+    fn, inputs = card_kit[kind]
+    out, n = _q8_topk_launches(fn, inputs)
+    assert n == launches
+    monkeypatch.setattr(SP, "q8_topk", lambda s, i, w, k, tq: q8_topk_plain(s, i, w, k))
+    plain, n = _q8_topk_launches(fn, inputs)
+    assert n == 0
+    for a, b in zip(out, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_q8r_step_on_the_card_launches_no_q8_topk(card):
+    from test_torch_rank_safe import _q8r_kit
+
+    step, inputs = _q8r_kit(card)
+    _, n = _q8_topk_launches(step, inputs)
+    assert n == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("terms", [(8, 16), (16, 32)])
+def test_q8_step_at_cell_lengths_launches_q8_topk_once_a_view(card, terms):
+    """At p_cap 2048 with NQ's 8 / 16 and HotpotQA's 16 / 32 query terms
+    (rows of 16,384 to 65,536 sums), a q8 step launches M3 twice."""
+    fn, inputs = _kit(card, cap=2048, terms=terms)["ensemble"]
+    _q8_topk_launches(fn, inputs)
+    _, n = _q8_topk_launches(fn, inputs)
+    assert n == 2
