@@ -13,8 +13,9 @@ serve it: every tensor on one CUDA device, none requiring grad, and no
 stream capture in progress. Anything else, the CPU above all, runs ``fn``
 as it is. The first sighting of a signature runs eagerly and is the
 capture's warm-up, so a shape seen once never pays a capture. The second
-captures into the graph's own memory pool (never while a torch.profiler
-session records: that call runs eagerly), then replays. Later sightings
+captures into the graph's own memory pool (never while spans are kept,
+under a torch.profiler session or ``tracing.recording()``: that call runs
+eagerly), then replays. Later sightings
 copy the inputs into the graph's static inputs, replay it on the current
 stream and return clones of its static outputs, so a result held by the
 caller outlives the next replay. A capture that raises marks its signature

@@ -336,6 +336,22 @@ def test_no_capture_under_a_recording_profiler(card, fresh):
     assert T.REPLAYS == Counter({"qpp": 2, "fusion": 2})
 
 
+@pytest.mark.cuda
+def test_no_capture_inside_recording(card, fresh):
+    """recording() keeps spans as the profiler does, so no signature is
+    captured inside it either; after it, the second sighting captures."""
+    run = _runs(15, device=card)
+    with T.recording():
+        for _ in range(3):
+            assert _equal(_qpp(run), _eager_qpp(run))
+            assert _equal(_fuse(run), _eager_fuse(run))
+    assert sum(T.CAPTURES.values()) == sum(T.REPLAYS.values()) == 0
+    assert _equal(_qpp(run), _eager_qpp(run)) and _equal(_fuse(run), _eager_fuse(run))
+    assert T.CAPTURES == Counter({"qpp": 1, "fusion": 1})
+    T.spans()
+    T.clear()
+
+
 @pytest.fixture(scope="module")
 def step_kit(card):
     """The served steps of test_torch_tracing on the card: the q8

@@ -1,11 +1,14 @@
 """The port's tracing module (qpp_fusion_rag_tpu_torch/tracing.py): spans
-only while torch.profiler records, their names and nesting in the two
-served steps as kept and as the profiler saw them, the counted moves, and
-the one launch counter. CPU tensors, except in the tests marked cuda at
-the end, which skip without a card: there a host -> CUDA move is staged
-through pinned memory without a wait, and the steps' outputs are the same
-bits from host and from card inputs. The file imports no JAX."""
+only while torch.profiler records or inside recording(), their names and
+nesting in the two served steps as kept and as the profiler saw them, the
+spans' device intervals (on a fake device whose clock is the host's), the
+counted moves, and the one launch counter. CPU tensors, except in the
+tests marked cuda at the end, which skip without a card: there a host ->
+CUDA move is staged through pinned memory without a wait, the steps'
+outputs are the same bits from host and from card inputs, and every kept
+span's device interval holds its work. The file imports no JAX."""
 
+import contextlib
 import time
 from collections import Counter
 
@@ -348,6 +351,293 @@ def test_kept_spans_are_bounded(monkeypatch):
     assert [s.name for s in T.spans()] == ["c", "d", "e"]
 
 
+def _recorded(step):
+    """-> (the step's outputs, kept spans) of one step inside recording()."""
+    T.clear()
+    with T.recording():
+        out = step()
+    return out, T.spans()
+
+
+def _no_cuda(monkeypatch):
+    """Makes every CUDA call the spans could make raise."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA call")
+
+    for name in ("Event", "Stream", "current_stream", "synchronize",
+                 "is_current_stream_capturing"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    monkeypatch.setattr(T, "_current_stream", refuse)
+
+
+def test_off_spans_keep_nothing_and_make_no_event(steps, monkeypatch):
+    """With neither the profiler nor recording(), no span is kept, no
+    annotation entered and no CUDA event made: the off path is the one
+    shared no-op context."""
+    calls = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: calls.append(name) or real(name))
+    _no_cuda(monkeypatch)
+    pool = list(T._POOL)
+    T.clear()
+    for step in steps.values():
+        step()
+    assert T.spans() == () and calls == [] and T._POOL == pool
+    assert T.span("a") is T.span("b") is T._OFF
+
+
+@pytest.mark.parametrize("kind", ["ensemble", "ensemble.sort", "flagship"])
+def test_recording_keeps_the_profiler_s_spans_without_annotations(steps, kind,
+                                                                  monkeypatch):
+    """Inside recording() the kept spans have the names and parents they
+    have under the profiler, and record_function is never entered."""
+    _, traced, _ = _traced(steps[kind])
+    calls = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: calls.append(name))
+    _, kept = _recorded(steps[kind])
+    assert calls == []
+    assert [(s.name, s.parent) for s in kept] == [(s.name, s.parent) for s in traced]
+    assert all(s.start_ns <= s.end_ns for s in kept)
+    assert not T._recording()
+
+
+@pytest.mark.parametrize("mode", ["profiler", "recording"])
+def test_cpu_spans_carry_no_device_interval(steps, mode, monkeypatch):
+    """On the CPU no span records an event: dev_start_ns and dev_end_ns
+    are None, and no CUDA call is made."""
+    _no_cuda(monkeypatch)
+    _, kept = (_traced(steps["ensemble"])[:2] if mode == "profiler"
+               else _recorded(steps["ensemble"]))
+    assert kept and all(s.dev_start_ns is None and s.dev_end_ns is None for s in kept)
+
+
+def test_recording_keeps_a_bounded_buffer(monkeypatch):
+    monkeypatch.setattr(T, "_KEPT", T.deque(maxlen=3))
+    with T.recording():
+        for name in "abcde":
+            with T.span(name):
+                pass
+    assert [s.name for s in T.spans()] == ["c", "d", "e"]
+
+
+def test_recording_nests_and_ends():
+    assert not T._recording()
+    with T.recording():
+        with T.recording():
+            assert T._recording()
+        assert T._recording() and T.span("a") is not T._OFF
+    assert not T._recording() and T.span("a") is T._OFF
+
+
+LAG_NS = 200_000_000    # the fake device runs 200 ms behind the host
+TOL_NS = 50_000_000     # the anchor's read, however late the host gets to it
+
+
+CURRENT = object()      # the fake card's current stream
+
+
+class _FakeEvent:
+    """A CUDA event on a fake device whose clock is the host's: an event on
+    the current stream completes LAG_NS after it is recorded, one on any
+    other (idle) stream at once."""
+    made = 0
+    waits: list = []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        _FakeEvent.made += 1
+
+    def record(self, stream=None):
+        self.idle = stream is not None and stream is not CURRENT
+        self.recorded = time.perf_counter_ns()
+        self.at = self.recorded + (0 if self.idle else LAG_NS)
+
+    def synchronize(self):
+        _FakeEvent.waits.append(self)
+        while time.perf_counter_ns() < self.at:
+            pass
+
+    def elapsed_time(self, other):
+        return (other.at - self.at) / 1e6
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The spans see an initialized CUDA runtime with _FakeEvent events, an
+    empty pool and no anchor stream yet."""
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "Stream", object)
+    monkeypatch.setattr(T, "_current_stream", lambda: CURRENT)
+    monkeypatch.setattr(T, "_POOL", [])
+    monkeypatch.setattr(T, "_IDLE", [])
+    monkeypatch.setattr(_FakeEvent, "made", 0)
+    monkeypatch.setattr(_FakeEvent, "waits", [])
+    T.clear()
+    yield monkeypatch
+    T.clear()
+
+
+def _nested_spans():
+    with T.span("outer"):
+        time.sleep(0.002)
+        with T.span("inner"):
+            time.sleep(0.002)
+        time.sleep(0.002)
+
+
+@pytest.mark.parametrize("mode", ["profiler", "recording"])
+def test_device_intervals_land_on_the_host_clock(fake_card, mode):
+    """Inside recording(), under the profiler too, each kept span's two
+    events are put on the host clock through the anchor: the times are the
+    fake device's own, late by no more than the anchor's read, and LAG_NS
+    after the host opened the span. The intervals nest as the spans do;
+    the one wait is for the last event recorded."""
+    ctx = (profile(activities=[ProfilerActivity.CPU]) if mode == "profiler"
+           else contextlib.nullcontext())
+    with ctx, T.recording():
+        _nested_spans()
+    inner, outer = T.spans()
+    got = sorted(t for s in (inner, outer) for t in (s.dev_start_ns, s.dev_end_ns))
+    want = sorted(e.at for e in T._POOL if not e.idle)
+    assert len(got) == len(want) == 4
+    assert all(isinstance(g, int) and 0 <= g - w < TOL_NS for g, w in zip(got, want))
+    assert all(s.dev_start_ns - s.start_ns > LAG_NS // 2 for s in (inner, outer))
+    assert outer.dev_start_ns <= inner.dev_start_ns < inner.dev_end_ns <= outer.dev_end_ns
+    assert _FakeEvent.waits[0].at == max(w.at for w in _FakeEvent.waits[:4])
+    assert T.spans() == (inner, outer)          # read once, kept as read
+
+
+def test_events_go_back_to_the_pool(fake_card):
+    """spans() and clear() return the events to the pool; later spans take
+    them from there instead of making new ones."""
+    with T.recording():
+        _nested_spans()
+    made = _FakeEvent.made
+    assert made == 4 and len(T._POOL) == 0
+    T.spans()
+    assert _FakeEvent.made == made + 1 and len(T._POOL) == made + 1   # + the anchor
+    with T.recording():
+        _nested_spans()
+    assert _FakeEvent.made == made + 1 and len(T._POOL) == 1
+    T.clear()
+    assert len(T._POOL) == made + 1 and T.spans() == ()
+
+
+def test_a_capture_records_no_event(fake_card):
+    """No event while the stream captures a graph: a span opened inside a
+    capture, or one a capture began inside, keeps no device interval, and
+    its opening event goes back to the pool."""
+    capturing = [True]
+    fake_card.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    with T.recording():
+        with T.span("inside"):
+            pass
+        capturing[0] = False
+        with T.span("around"):
+            capturing[0] = True
+    assert [(s.name, s.dev_start_ns, s.dev_end_ns) for s in T.spans()] == [
+        ("inside", None, None), ("around", None, None)]
+    assert _FakeEvent.made == 1 and len(T._POOL) == 1
+
+
+def test_trace_offset_puts_the_trace_on_the_spans_clock():
+    """A span's annotation in the trace, less trace_offset_ns(), starts
+    where the kept span starts (the span reads the host clock just after
+    entering its annotation)."""
+    T.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with T.span("offset_probe"):
+            pass
+    offset = T.trace_offset_ns()
+    note, = [e for e in prof.profiler.kineto_results.events() if e.name() == "offset_probe"]
+    kept, = T.spans()
+    assert abs(note.start_ns() - offset - kept.start_ns) < 1_000_000
+
+
+@pytest.mark.parametrize("kind", ["ensemble", "ensemble.sort", "flagship"])
+def test_the_profiler_alone_records_no_event(fake_card, steps, kind):
+    """On an initialized card, a step under the profiler alone keeps its
+    spans with no device interval and makes, records and waits for no
+    event: the events' host cost stays out of the traced window."""
+    _, kept, notes = _traced(steps[kind])
+    assert kept and notes
+    assert all(s.dev_start_ns is None and s.dev_end_ns is None for s in kept)
+    assert _FakeEvent.made == 0 and _FakeEvent.waits == [] and T._POOL == []
+    assert not T._pending
+
+
+@pytest.mark.parametrize("kind", ["ensemble", "ensemble.sort", "flagship"])
+def test_recording_under_the_profiler_annotates_and_records(fake_card, steps, kind,
+                                                            monkeypatch):
+    """recording() inside a profiler session keeps the profiler's spans,
+    each entering its annotation and carrying a device interval."""
+    _, alone, _ = _traced(steps[kind])
+    calls = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: calls.append(name) or real(name))
+    T.clear()
+    with profile(activities=[ProfilerActivity.CPU]), T.recording():
+        steps[kind]()
+    kept = T.spans()
+    assert [(s.name, s.parent) for s in kept] == [(s.name, s.parent) for s in alone]
+    assert sorted(calls) == sorted(s.name for s in kept)
+    assert all(isinstance(s.dev_start_ns, int) and s.dev_start_ns <= s.dev_end_ns
+               for s in kept)
+
+
+def test_a_span_reads_the_host_clock_before_its_event(fake_card):
+    """A span's host start is read before its opening event is recorded and
+    its host end before its closing one, so the host's lead at a span's
+    start holds the event's own cost and no more."""
+    with T.recording():
+        _nested_spans()
+    held = list(T._KEPT)
+    assert len(held) == 2
+    for s in held:
+        assert s.start_ns <= s.dev_start_ns.recorded <= s.dev_end_ns.recorded
+        assert s.end_ns <= s.dev_end_ns.recorded
+
+
+@pytest.mark.parametrize("order", ["opened inside", "opened before"])
+def test_a_span_across_an_end_of_recording(fake_card, order):
+    """A span opened inside recording() keeps both events though the
+    context ended before the span closed; a span opened under the profiler
+    before recording() began keeps none, while the span opened inside it
+    keeps its own."""
+    if order == "opened inside":
+        rec = T.recording()
+        rec.__enter__()
+        with T.span("across"):
+            rec.__exit__(None, None, None)
+        across, = T.spans()
+        assert isinstance(across.dev_start_ns, int)
+        assert across.dev_start_ns <= across.dev_end_ns
+    else:
+        with profile(activities=[ProfilerActivity.CPU]):
+            with T.span("across"):
+                with T.recording(), T.span("inner"):
+                    pass
+        inner, across = T.spans()
+        assert across.name == "across" and across.dev_start_ns is across.dev_end_ns is None
+        assert inner.name == "inner" and isinstance(inner.dev_start_ns, int)
+    assert _FakeEvent.made == 3         # two of the span's, the anchor
+    assert not T._recording()
+
+
+def test_recording_ends_when_its_block_raises():
+    with pytest.raises(KeyError):
+        with T.recording():
+            with T.span("a"):
+                raise KeyError("x")
+    assert not T._recording() and T._keeping == 0 and T.span("a") is T._OFF
+    assert [s.name for s in T.spans()] == ["a"]
+    T.clear()
+
+
 # ------------------------------------------------------------- on the card
 # On the card: python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
 
@@ -500,12 +790,13 @@ def test_a_traced_step_after_warm_up_replays_the_qpp_and_fusion_graphs(card_kit,
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def _traced_on_card(fn, inputs):
+def _traced_on_card(fn, inputs, recording=False):
     """-> (outputs, kept spans) of one step under torch.profiler with CPU
-    and CUDA activity."""
+    and CUDA activity, inside recording() as well where asked."""
     T.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        out = fn(*inputs)
+        with T.recording() if recording else contextlib.nullcontext():
+            out = fn(*inputs)
         torch.cuda.synchronize()
     return out, T.spans()
 
@@ -660,3 +951,153 @@ def test_q8_step_at_cell_lengths_launches_q8_topk_once_a_view(card, terms):
     _q8_topk_launches(fn, inputs)
     _, n = _q8_topk_launches(fn, inputs)
     assert n == 2
+
+
+def _hotpotqa_kit(card):
+    """The q8 ensemble step at HotpotQA's query lengths: 16 / 32 terms at
+    p_cap 2048 (65,536-key SPLADE rows)."""
+    return _kit(card, cap=2048, terms=(16, 32))["ensemble"]
+
+
+DEVICE_KINDS = ["ensemble", "ensemble.sort", "hotpotqa"]
+US = 1000                 # ns
+# A kept span reads the host clock after the profiler has stamped its
+# annotation and run its own entry work: 3-88 us on an H100 host, 800 spans
+# with and without recording() (a clock error shows in milliseconds).
+ANNOTATION_LAG_NS = 150 * US
+
+
+def _card_step(card_kit, card, kind):
+    return _hotpotqa_kit(card) if kind == "hotpotqa" else card_kit[kind]
+
+
+def _enclosing(kept, s):
+    """The kept span that s's parent names and whose host interval holds s's."""
+    found = [p for p in kept if p.name == s.parent and p.start_ns <= s.start_ns
+             and s.end_ns <= p.end_ns]
+    assert len(found) == 1
+    return found[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", DEVICE_KINDS)
+def test_traced_steps_on_the_card_keep_nested_device_intervals(card_kit, card, kind):
+    """In a q8, "sort" and HotpotQA-shaped step traced inside recording()
+    every kept span has a device interval that starts no earlier than the
+    host opened the span, and the intervals of one step nest as the spans
+    do."""
+    fn, inputs = _card_step(card_kit, card, kind)
+    for _ in range(2):
+        fn(*inputs)
+    _, kept = _traced_on_card(fn, inputs, recording=True)
+    assert kept
+    for s in kept:
+        assert isinstance(s.dev_start_ns, int) and isinstance(s.dev_end_ns, int)
+        assert s.dev_start_ns <= s.dev_end_ns
+        assert s.dev_start_ns >= s.start_ns - 50 * US
+        if s.parent is not None:
+            p = _enclosing(kept, s)
+            assert p.dev_start_ns <= s.dev_start_ns and s.dev_end_ns <= p.dev_end_ns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", DEVICE_KINDS)
+def test_traced_steps_on_the_card_record_no_event(card_kit, card, kind):
+    """Under the profiler alone a step's kept spans carry no device
+    interval: no event is recorded into the traced window."""
+    fn, inputs = _card_step(card_kit, card, kind)
+    pool = len(T._POOL)
+    _, kept = _traced_on_card(fn, inputs)
+    assert kept and all(s.dev_start_ns is s.dev_end_ns is None for s in kept)
+    assert len(T._POOL) == pool
+
+
+@pytest.mark.cuda
+def test_row_sums_interval_holds_k2_from_the_same_trace(card_kit):
+    """In a step traced inside recording(), each sparse.row_sums span's
+    device interval holds its K2 kernel as the trace timed it, within 50
+    us, once the trace's times are put on the spans' clock
+    (trace_offset_ns); and every kept span, the first included, reads the
+    host clock within ANNOTATION_LAG_NS of its annotation's start in the
+    trace, on either side."""
+    fn, inputs = card_kit["ensemble"]
+    for _ in range(2):
+        fn(*inputs)
+    _recorded(lambda: fn(*inputs))              # the pool holds the step's events
+    T.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with T.recording():
+            fn(*inputs)
+        torch.cuda.synchronize()
+    offset = T.trace_offset_ns()
+    events = prof.profiler.kineto_results.events()
+    k2 = sorted((e.start_ns() - offset, e.start_ns() + e.duration_ns() - offset)
+                for e in events if "bitonic_segsum" in e.name())
+    kept = T.spans()
+    row_sums = sorted(s for s in kept if s.name == "sparse.row_sums")
+    assert len(k2) == len(row_sums) == 2
+    for s, (a, b) in zip(row_sums, k2):
+        assert s.dev_start_ns - 50 * US <= a and b <= s.dev_end_ns + 50 * US
+    notes = [e for e in events if not str(e.device_type()).endswith("CUDA")]
+    for name in {s.name for s in kept}:
+        mine = sorted((s for s in kept if s.name == name), key=lambda s: s.start_ns)
+        theirs = sorted((e for e in notes if e.name() == name), key=lambda e: e.start_ns())
+        assert len(mine) == len(theirs)
+        for s, e in zip(mine, theirs):
+            assert abs(e.start_ns() - offset - s.start_ns) <= ANNOTATION_LAG_NS
+
+
+@pytest.mark.cuda
+def test_a_graph_capture_inside_recording_records_no_event(card):
+    """A span opened inside a graph capture under recording() records no
+    event into the graph: the capture succeeds, its replay gives the eager
+    bits, the span keeps no device interval, and a span around the replay
+    keeps one."""
+    x = torch.arange(1024, dtype=torch.float32, device=card)
+    y = x * 2 + 1
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    T.clear()
+    with T.recording():
+        with torch.cuda.graph(g):
+            with T.span("captured"):
+                z = x * 2 + 1
+        x.add_(1)
+        with T.span("replayed"):
+            g.replay()
+    captured, replayed = T.spans()
+    assert captured.name == "captured" and captured.dev_start_ns is None
+    assert replayed.name == "replayed" and isinstance(replayed.dev_start_ns, int)
+    assert torch.equal(z, y + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CARD_KINDS)
+def test_outputs_bit_equal_off_traced_and_recording(card_kit, kind):
+    """A step's outputs are the same bits with tracing off, under the
+    profiler, inside recording() (events recorded) and under both."""
+    fn, inputs = card_kit[kind]
+    off = fn(*inputs)
+    traced, _ = _traced_on_card(fn, inputs)
+    recorded, kept = _recorded(lambda: fn(*inputs))
+    both, _ = _traced_on_card(fn, inputs, recording=True)
+    assert kept and all(isinstance(s.dev_end_ns, int) for s in kept)
+    for a, b, c, d in zip(off, traced, recorded, both):
+        assert a.dtype == b.dtype == c.dtype == d.dtype
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", CARD_KINDS)
+def test_steps_inside_recording_never_wait_for_the_device(card_kit, kind):
+    """Inside recording() a step still makes no call that waits for the
+    device: the spans' events are recorded, not waited for, until spans()
+    is read after the step."""
+    fn, inputs = card_kit[kind]
+    staged, syncs = sum(T.STAGED.values()), sum(T.SYNCS.values())
+    T.clear()
+    with T.recording():
+        _sync_debug_error(fn, *inputs)
+    assert sum(T.STAGED.values()) - staged == CARD_KINDS[kind]
+    assert sum(T.SYNCS.values()) == syncs
+    assert T.spans() and all(isinstance(s.dev_end_ns, int) for s in T.spans())
